@@ -1,0 +1,212 @@
+"""Model configuration covering all assigned architecture families.
+
+A copy of ``repro/models/config.py``: the same frozen ``ModelConfig``,
+``BLOCK_KINDS`` and ``scaled_down``, so a config built by either package
+compares equal field by field (``dataclasses.asdict``).
+
+The layer stack is described by ``pattern``: one repeating *group* of block
+kinds. ``num_layers = len(pattern) * full_groups + len(tail)`` — parameters
+of the full groups are stacked along a leading axis, and the tail blocks
+are kept apart.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+BLOCK_KINDS = (
+    "attn",          # global attention + dense FFN
+    "local",         # sliding-window attention + dense FFN
+    "attn_moe",      # global attention + MoE FFN
+    "mamba",         # Mamba2 (SSD) block
+    "shared_attn",   # hybrid: invoke the single shared transformer block
+)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    # Attention.
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0              # 0 => d_model // num_heads
+    rope_variant: str = "full"     # full | half (ChatGLM 2D) | mrope (Qwen2-VL)
+    rope_theta: float = 10_000.0
+    mrope_sections: tuple[int, ...] = ()   # half-dims per (t, h, w) stream
+    sliding_window: int = 0        # window for "local" blocks
+    # Layer stack.
+    pattern: tuple[str, ...] = ("attn",)
+    # FFN.
+    act: str = "silu"
+    gated_mlp: bool = True
+    # MoE.
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_groups: int = 1            # routing groups (>= #shards at scale)
+    capacity_factor: float = 1.25
+    # SSM (Mamba2 / SSD).
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    conv_width: int = 4
+    # Misc.
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # Pad the embedding table rows to a multiple of this (Megatron-style),
+    # so the vocab dim shards evenly; logits over padded ids are masked.
+    vocab_pad_to: int = 1
+    # Serving: store the KV cache as int8 with per-vector f32 scales —
+    # halves the decode memory-roofline term (EXPERIMENTS.md §Perf cell 3).
+    kv_quant: bool = False
+    dtype: str = "bfloat16"
+    frontend: str = ""             # "" | audio_frames | vision_patches
+    max_seq_len: int = 131_072
+
+    # ------------------------------------------------------------------ #
+    def __post_init__(self):
+        if not self.pattern:
+            raise ValueError("pattern must be non-empty")
+        if self.num_layers < len(self.pattern):
+            raise ValueError("num_layers smaller than one pattern group")
+        for k in self.pattern:
+            if k not in BLOCK_KINDS:
+                raise ValueError(f"unknown block kind {k!r}")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def vocab_padded(self) -> int:
+        q = self.vocab_pad_to
+        return -(-self.vocab_size // q) * q
+
+    @property
+    def full_groups(self) -> int:
+        return self.num_layers // len(self.pattern)
+
+    @property
+    def tail(self) -> tuple[str, ...]:
+        return self.pattern[: self.num_layers % len(self.pattern)]
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_heads or (self.d_inner // self.ssm_head_dim)
+
+    @property
+    def has_attention(self) -> bool:
+        return any(k != "mamba" for k in self.pattern)
+
+    @property
+    def uses_shared_block(self) -> bool:
+        return "shared_attn" in self.pattern
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k decode: never materializes O(S^2) state and
+        keeps at most a windowed or constant-size per-layer cache, except for
+        a small number of global/full layers (linear in cache for 1-token
+        decode)."""
+        kinds = set(self.pattern)
+        if kinds <= {"mamba", "shared_attn"}:
+            return True
+        if "local" in kinds and kinds <= {"local", "attn"}:
+            return True  # mostly-local (gemma3-style 5:1)
+        return False
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6*N*D MODEL_FLOPS in §Roofline)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_padded
+        n = v * d  # embeddings
+        if not self.tie_embeddings:
+            n += v * d
+        per_kind: dict[str, int] = {}
+        hd = self.qk_head_dim
+        attn_p = d * hd * (self.num_heads + 2 * self.num_kv_heads) \
+            + self.num_heads * hd * d
+        mlp_p = d * f * (3 if self.gated_mlp else 2)
+        per_kind["attn"] = attn_p + mlp_p + 2 * d
+        per_kind["local"] = per_kind["attn"]
+        moe_f = f  # assigned configs quote per-expert d_ff
+        per_kind["attn_moe"] = (attn_p + d * self.num_experts
+                                + self.num_experts * d * moe_f
+                                * (3 if self.gated_mlp else 2) + 2 * d)
+        di, ns, nh = self.d_inner, self.ssm_state, self.ssm_num_heads
+        g_bc = 2 * ns  # single B/C group
+        per_kind["mamba"] = (d * (2 * di + g_bc + nh)  # w_z/w_x/w_bc/w_dt
+                             + self.conv_width * (di + g_bc)
+                             + 3 * nh                   # A_log, D, dt_bias
+                             + di                        # gated norm
+                             + di * d + d)               # out_proj + norm
+        per_kind["shared_attn"] = 0  # counted once below
+        counts = {}
+        for k in self.pattern:
+            counts[k] = counts.get(k, 0) + 1
+        total_blocks = dict(counts)
+        for k in self.tail:
+            total_blocks[k] = total_blocks.get(k, 0)
+        n_groups = self.full_groups
+        for k, c_in_pattern in counts.items():
+            occurrences = c_in_pattern * n_groups + sum(
+                1 for t in self.tail if t == k)
+            n += occurrences * per_kind[k]
+        if self.uses_shared_block:
+            n += per_kind["attn"]  # one shared transformer block
+        n += d  # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k experts count)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        dense_like = replace(
+            self,
+            pattern=tuple("attn" if k == "attn_moe" else k
+                          for k in self.pattern),
+            num_experts=0, num_experts_per_tok=0,
+            d_ff=self.d_ff * self.num_experts_per_tok,
+        )
+        # router params
+        n = dense_like.param_count()
+        moe_layers = sum(1 for k in self.pattern if k == "attn_moe") \
+            * self.full_groups + sum(1 for k in self.tail if k == "attn_moe")
+        n += moe_layers * self.d_model * self.num_experts
+        return n
+
+
+def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Reduced config of the same family for CPU smoke tests."""
+    small = dict(
+        num_layers=len(cfg.pattern) * 2 + len(cfg.tail),
+        d_model=64,
+        d_ff=128,
+        vocab_size=128,
+        vocab_pad_to=1,
+        num_heads=4 if cfg.num_heads else 0,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        head_dim=16 if cfg.num_heads else 0,
+        num_experts=8 if cfg.num_experts else 0,
+        num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
+        moe_groups=1,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_heads=0,
+        ssm_head_dim=16,
+        ssm_chunk=8,
+        sliding_window=8 if cfg.sliding_window else 0,
+        mrope_sections=(4, 2, 2) if cfg.rope_variant == "mrope" else (),
+        max_seq_len=256,
+        dtype="float32",
+    )
+    small.update(overrides)
+    return replace(cfg, **small)

@@ -1,0 +1,48 @@
+"""Carry reference (JAX) parameter and cache trees across to the port.
+
+The caller passes the reference tree through ``np.asarray`` leaf by leaf
+(``jax.tree.map(np.asarray, tree)``); this module turns each numpy leaf
+into a tensor on ``device`` and keeps the nesting of dicts, tuples and
+lists, so the ``"groups"`` leaves keep their leading ``full_groups`` axis.
+
+bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` rejects.  They are detected by dtype name (no import
+of ``ml_dtypes``) and reinterpreted bit for bit: uint16 view -> int16 ->
+``view(torch.bfloat16)``.  Arrays that come from JAX are read-only, so
+every leaf is copied before ``torch.from_numpy`` shares its memory.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.launch.device import resolve_device
+
+
+def _leaf(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = a.view(np.uint16).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _convert(tree, device: torch.device):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_convert(v, device) for v in tree)
+    return _leaf(tree, device)
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """A reference parameter tree of numpy leaves -> the port's tree."""
+    return _convert(tree, resolve_device(device))
+
+
+def caches_from_numpy(tree, device: str | torch.device = "cuda"):
+    """A reference cache tree of numpy leaves -> the port's cache tree."""
+    return _convert(tree, resolve_device(device))

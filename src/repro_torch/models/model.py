@@ -1,0 +1,307 @@
+"""Decoder-only LM over the dense block kinds, in PyTorch.
+
+The port of ``repro/models/model.py``.  Parameters and caches are nested
+dicts/tuples of tensors with the reference's layout: the blocks of
+``cfg.pattern`` are stacked along a leading ``full_groups`` axis under
+``"groups"`` and the ``cfg.tail`` blocks sit apart under ``"tail"``, so a
+reference pytree converts leaf by leaf (``models.convert``).  Where the
+reference scans over the stacked groups, the port loops over them in
+Python.
+
+Entry points:
+  init_params(cfg, seed=, device=)              -> param tree
+  forward(params, cfg, tokens=)                 -> logits (B, S, V) f32
+  init_cache(cfg, batch, max_len, device=)      -> decode cache tree
+  prefill(params, cfg, caches=, tokens=)        -> (logits, caches)
+  decode_step(params, cfg, tokens, caches, cache_len, fused=)
+                                                -> (logits (B,1,V), caches)
+
+Caches are written in place; the functions also return them, as the
+reference returns its donated caches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.launch.device import resolve_device
+
+from .config import ModelConfig
+from .layers import attention_block, mamba_block, mlp_block, moe_block, rms_norm
+
+Params = dict[str, Any]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def _index(tree, g: int):
+    """The ``g``-th entry of every leaf of a stacked block tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+class _Init:
+    """Draws the reference's distributions from one ``torch.Generator``.
+
+    ``lead`` is the stacked ``full_groups`` axis (empty for tail blocks);
+    each stacked leaf is drawn one group at a time to bound peak memory.
+    """
+
+    def __init__(self, gen: torch.Generator, device: torch.device,
+                 dt: torch.dtype, lead: tuple[int, ...] = ()):
+        self.gen, self.device, self.dt, self.lead = gen, device, dt, lead
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        out = torch.empty((*self.lead, *shape), dtype=self.dt,
+                          device=self.device)
+        flat = out.reshape(-1, *shape) if self.lead else out[None]
+        for i in range(flat.shape[0]):
+            flat[i] = (torch.randn(shape, generator=self.gen,
+                                   device=self.device) * scale).to(self.dt)
+        return out
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros((*self.lead, *shape), dtype=torch.float32,
+                           device=self.device)
+
+
+def _init_attn(ini: _Init, cfg: ModelConfig) -> dict:
+    hd, d = cfg.qk_head_dim, cfg.d_model
+    s = 1.0 / math.sqrt(d)
+    so = 1.0 / math.sqrt(cfg.num_heads * hd)
+    return {"wq": ini.normal((d, cfg.num_heads * hd), s),
+            "wk": ini.normal((d, cfg.num_kv_heads * hd), s),
+            "wv": ini.normal((d, cfg.num_kv_heads * hd), s),
+            "wo": ini.normal((cfg.num_heads * hd, d), so)}
+
+
+def _init_mlp(ini: _Init, cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"w_in": ini.normal((d, f), s_in), "w_out": ini.normal((f, d), s_out)}
+    if cfg.gated_mlp:
+        p["w_gate"] = ini.normal((d, f), s_in)
+    return p
+
+
+def _init_block(ini: _Init, kind: str, cfg: ModelConfig) -> dict:
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(
+            f"{kind!r} blocks are not ported yet (ROADMAP A9)")
+    d = cfg.d_model
+    return {"norm1": ini.zeros((d,)), "norm2": ini.zeros((d,)),
+            "attn": _init_attn(ini, cfg), "mlp": _init_mlp(ini, cfg)}
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: str | torch.device = "cuda") -> Params:
+    """Random parameters with the reference's distributions and scales,
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _dtype(cfg.dtype)
+    d, vp = cfg.d_model, cfg.vocab_padded
+    stacked = _Init(gen, dev, dt, (cfg.full_groups,))
+    single = _Init(gen, dev, dt)
+    params: Params = {
+        "embed": single.normal((vp, d), 0.02),
+        "groups": tuple(_init_block(stacked, kind, cfg)
+                        for kind in cfg.pattern),
+        "tail": tuple(_init_block(single, kind, cfg) for kind in cfg.tail),
+        "final_norm": single.zeros((d,)),
+    }
+    if cfg.uses_shared_block:
+        raise NotImplementedError("shared blocks are not ported yet "
+                                  "(ROADMAP A9)")
+    if not cfg.tie_embeddings:
+        params["lm_head"] = single.normal((d, vp), 1.0 / math.sqrt(d))
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# Blocks
+# --------------------------------------------------------------------------- #
+def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
+                 fused=False):
+    """One decoder block; returns (h, cache)."""
+    if kind == "shared_attn":
+        raise NotImplementedError("shared blocks are not ported yet "
+                                  "(ROADMAP A9)")
+    window = cfg.sliding_window if kind == "local" else 0
+    if kind == "mamba":
+        return mamba_block(rms_norm(h, bp["norm1"], cfg.norm_eps),
+                           bp["mamba"], cfg, cache=cache)
+    a_in = rms_norm(h, bp["norm1"], cfg.norm_eps)
+    a_out, new_cache = attention_block(a_in, bp["attn"], cfg,
+                                       positions=positions, window=window,
+                                       cache=cache, fused=fused)
+    h = h + a_out
+    f_in = rms_norm(h, bp["norm2"], cfg.norm_eps)
+    if "moe" in bp:
+        f_out = moe_block(f_in, bp["moe"], cfg)
+    else:
+        f_out = mlp_block(f_in, bp["mlp"], cfg)
+    return h + f_out, new_cache
+
+
+def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
+               cache_len=None, fused=False):
+    """The full groups in order, then the tail.  Returns (h, caches)."""
+    def with_len(entry):
+        return None if entry is None else dict(entry, len=cache_len)
+
+    for g in range(cfg.full_groups):
+        for i, kind in enumerate(cfg.pattern):
+            entry = (_index(caches["groups"][i], g)
+                     if caches is not None else None)
+            h, _ = _apply_block(h, _index(params["groups"][i], g), kind, cfg,
+                                positions=positions, cache=with_len(entry),
+                                fused=fused)
+    for i, kind in enumerate(cfg.tail):
+        entry = caches["tail"][i] if caches is not None else None
+        h, _ = _apply_block(h, params["tail"][i], kind, cfg,
+                            positions=positions, cache=with_len(entry),
+                            fused=fused)
+    return h, caches
+
+
+# --------------------------------------------------------------------------- #
+# Forward (prefill)
+# --------------------------------------------------------------------------- #
+def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def logits_from_hidden(params, h, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = h.float() @ head.float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        # Mask padded vocabulary columns.
+        pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def _hidden(params, cfg, tokens, embeds):
+    if (tokens is None) == (embeds is None):
+        raise ValueError("provide exactly one of tokens/embeds")
+    if embeds is None:
+        return embed_tokens(params, tokens)
+    return embeds.to(_dtype(cfg.dtype))
+
+
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V)."""
+    h = _hidden(params, cfg, tokens, embeds)
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    h, _ = _run_stack(params, h, cfg, positions=positions)
+    return logits_from_hidden(params, h, cfg)
+
+
+def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None):
+    """Batched prefill: full-sequence forward that also fills ``caches``.
+
+    Returns (logits (B, S, V), caches).
+    """
+    h = _hidden(params, cfg, tokens, embeds)
+    b, s = h.shape[:2]
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    h, caches = _run_stack(params, h, cfg, positions=positions, caches=caches,
+                           cache_len=0)
+    return logits_from_hidden(params, h, cfg), caches
+
+
+# --------------------------------------------------------------------------- #
+# Decode (single-token serve step with caches)
+# --------------------------------------------------------------------------- #
+def _cache_entry(kind: str, cfg: ModelConfig, lead: tuple[int, ...],
+                 batch: int, max_len: int, dt: torch.dtype,
+                 device: torch.device) -> dict:
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(
+            f"{kind!r} caches are not ported yet (ROADMAP A9)")
+    length = max_len
+    if kind == "local" and cfg.sliding_window:
+        length = min(max_len, cfg.sliding_window)  # ring buffer
+    kv_dt = torch.int8 if cfg.kv_quant else dt
+    shape = (*lead, batch, length, cfg.num_kv_heads, cfg.qk_head_dim)
+    entry = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+             "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+    if cfg.kv_quant:
+        sshape = (*shape[:-1], 1)
+        entry["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+        entry["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+    return entry
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: str | None = None, *,
+               device: str | torch.device = "cuda"):
+    """Zeroed caches: group leaves ``(full_groups, B, ...)``, tail ``(B, ...)``."""
+    dev = resolve_device(device)
+    dt = _dtype(dtype or cfg.dtype)
+    return {
+        "groups": tuple(_cache_entry(kind, cfg, (cfg.full_groups,), batch,
+                                     max_len, dt, dev)
+                        for kind in cfg.pattern),
+        "tail": tuple(_cache_entry(kind, cfg, (), batch, max_len, dt, dev)
+                      for kind in cfg.tail),
+    }
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len, *,
+                fused: bool = False):
+    """One decode step: tokens (B, 1) int -> (logits (B,1,V), caches).
+
+    ``cache_len`` is the number of tokens already in the cache, a scalar or
+    a per-slot (B,) vector; each row writes its new token there and takes
+    it as its rotary position.  ``fused=True`` runs every attention block
+    through the fused decode-attention kernel, one launch per layer.
+    """
+    h = embed_tokens(params, tokens)
+    b = tokens.shape[0]
+    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=h.device)
+    if lens.ndim == 0:
+        lens = lens.expand(b)
+    lens = lens.contiguous()
+    positions = lens[:, None]                       # (B, 1) per-slot position
+    h, caches = _run_stack(params, h, cfg, positions=positions, caches=caches,
+                           cache_len=lens, fused=fused)
+    return logits_from_hidden(params, h, cfg), caches
+
+
+def merge_cache_slots(live, fresh, slot_mask):
+    """Copy the ``slot_mask`` rows of ``fresh`` into ``live``, in place.
+
+    Group leaves are ``(full_groups, B, ...)`` (batch axis 1), tail leaves
+    ``(B, ...)`` (batch axis 0); rows where the mask is False keep their
+    live state bit for bit.  Returns ``live``.
+    """
+    entries = list(zip(live["groups"], fresh["groups"])) + \
+        list(zip(live["tail"], fresh["tail"]))
+    if not entries:
+        return live
+    device = next(iter(entries[0][0].values())).device
+    mask = torch.as_tensor(slot_mask, dtype=torch.bool, device=device)
+    n_groups = len(live["groups"])
+    for i, (le, fe) in enumerate(entries):
+        rows = (slice(None), mask) if i < n_groups else (mask,)
+        for k in le:
+            le[k][rows] = fe[k][rows].to(le[k].dtype)
+    return live
