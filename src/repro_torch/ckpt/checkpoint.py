@@ -1,0 +1,232 @@
+"""Self-contained checkpointing, in the reference's on-disk format.
+
+The port of ``repro/ckpt/checkpoint.py``; each package restores what the
+other wrote:
+  * every leaf is written as one ``.npy`` file under a per-step directory,
+    named ``leaf_<i>.npy`` in the reference's leaf order (dict keys sorted,
+    ``None`` holding no leaf);
+  * a JSON manifest records each leaf's tree path (``"0/groups/1/attn/wq"``),
+    shape and dtype, plus the step and caller metadata;
+  * writes go to ``<dir>/tmp.<step>`` and are atomically renamed to
+    ``<dir>/step_<step>`` — a crashed save never corrupts the latest
+    checkpoint;
+  * ``CheckpointManager`` saves asynchronously (device tensors are copied
+    to the host first, so training proceeds while the write happens) and
+    keeps the last N checkpoints.
+
+bf16 leaves are written as the reference writes them: numpy has no
+bfloat16, so the file holds the raw 2-byte values with the ``'<V2'`` descr
+and the manifest says ``"bfloat16"``.  On restore the manifest's dtype
+decides: a ``"bfloat16"`` leaf is read as uint16 bits and viewed as
+``torch.bfloat16``, whichever package wrote it.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import threading
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+def _flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in the reference's (JAX pytree) leaf order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = []
+        for k in sorted(tree):
+            items += _flatten(tree[k], f"{prefix}{k}{_SEP}")
+        return items
+    if isinstance(tree, (tuple, list)):
+        items = []
+        for i, v in enumerate(tree):
+            items += _flatten(v, f"{prefix}{i}{_SEP}")
+        return items
+    return [(prefix[:-len(_SEP)], tree)]
+
+
+def _unflatten(tree: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
+    """``tree``'s structure with each leaf replaced by ``leaves[path]``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, leaves, f"{prefix}{k}{_SEP}")
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_unflatten(v, leaves, f"{prefix}{i}{_SEP}")
+                          for i, v in enumerate(tree))
+    return leaves[prefix[:-len(_SEP)]]
+
+
+class _HostLeaf:
+    """A leaf copied to the host: its numpy array and manifest dtype name."""
+
+    __slots__ = ("arr", "dtype")
+
+    def __init__(self, leaf: Any):
+        if isinstance(leaf, _HostLeaf):
+            self.arr, self.dtype = leaf.arr, leaf.dtype
+            return
+        if isinstance(leaf, torch.Tensor):
+            # A copy even for CPU tensors: the caller may update the leaf in
+            # place while the background thread writes it.
+            t = leaf.detach().to("cpu", copy=True)
+            if t.dtype == torch.bfloat16:
+                self.arr = t.view(torch.int16).numpy().view(np.uint16)
+                self.dtype = "bfloat16"
+                return
+            self.arr = t.numpy()
+        else:
+            self.arr = np.asarray(leaf)
+        self.dtype = str(self.arr.dtype)
+
+    def save(self, path: Path) -> None:
+        if self.dtype != "bfloat16":
+            np.save(path, self.arr)
+            return
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(
+                f, {"descr": "<V2", "fortran_order": False,
+                    "shape": self.arr.shape})
+            f.write(np.ascontiguousarray(self.arr).tobytes())
+
+
+def _load_leaf(path: Path, dtype: str) -> torch.Tensor:
+    arr = np.load(path)
+    if dtype == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def save_checkpoint(directory: str | Path, step: int, tree: Any,
+                    extra: dict | None = None) -> Path:
+    """Synchronous atomic save of one tree of tensors (or numpy arrays)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / f"tmp.{step}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+    manifest = {"step": step, "leaves": [], "extra": extra or {},
+                "format": 1}
+    for i, (name, leaf) in enumerate(_flatten(tree)):
+        host = _HostLeaf(leaf)
+        fname = f"leaf_{i:05d}.npy"
+        host.save(tmp / fname)
+        manifest["leaves"].append({"name": name, "file": fname,
+                                   "shape": list(host.arr.shape),
+                                   "dtype": host.dtype})
+    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    final = directory / f"step_{step:08d}"
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)
+    return final
+
+
+def list_steps(directory: str | Path) -> list[int]:
+    """All retained checkpoint steps, ascending (empty if none/missing)."""
+    directory = Path(directory)
+    if not directory.exists():
+        return []
+    return sorted(int(p.name.split("_")[1]) for p in directory.iterdir()
+                  if p.is_dir() and p.name.startswith("step_"))
+
+
+def latest_step(directory: str | Path) -> int | None:
+    steps = list_steps(directory)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(directory: str | Path, tree_like: Any,
+                       step: int | None = None, *,
+                       shardings: Any = None) -> tuple[Any, int, dict]:
+    """Restore into the structure of ``tree_like``; returns (tree, step,
+    extra).
+
+    Leaves in ``tree_like`` are shape *references*: a tensor or array leaf
+    is checked against the manifest, while a shapeless placeholder leaf
+    (e.g. ``0``) matches by name only.  ``shardings`` — the port's
+    counterpart of the reference's placement argument — is a
+    ``torch.device`` for every leaf; when it is None, each leaf goes to the
+    device of the ``tree_like`` tensor it replaces, or stays on the CPU.
+    """
+    directory = Path(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    d = directory / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    by_name = {m["name"]: m for m in manifest["leaves"]}
+    leaves = {}
+    for name, ref in _flatten(tree_like):
+        m = by_name.get(name)
+        if m is None:
+            raise KeyError(f"checkpoint missing leaf {name!r}")
+        t = _load_leaf(d / m["file"], m["dtype"])
+        want_shape = tuple(getattr(ref, "shape", t.shape))
+        if tuple(t.shape) != want_shape:
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
+                             f"expected {want_shape}")
+        device = shardings
+        if device is None and isinstance(ref, torch.Tensor):
+            device = ref.device
+        leaves[name] = t if device is None else t.to(device)
+    return _unflatten(tree_like, leaves), step, manifest["extra"]
+
+
+class CheckpointManager:
+    """Async saves + retention. ``save`` returns immediately; ``wait`` joins."""
+
+    def __init__(self, directory: str | Path, *, keep: int = 3):
+        self.directory = Path(directory)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+
+    def save(self, step: int, tree: Any, extra: dict | None = None,
+             *, blocking: bool = False) -> None:
+        # Host copies first (one device sync), so the caller may go on
+        # updating its tensors in place while the files are written.
+        host = {name: _HostLeaf(leaf) for name, leaf in _flatten(tree)}
+        host_tree = _unflatten(tree, host)
+        self.wait()
+
+        def work():
+            try:
+                save_checkpoint(self.directory, step, host_tree, extra)
+                self._gc()
+            except Exception as e:  # noqa: BLE001
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+        if blocking:
+            self.wait()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore_latest(self, tree_like: Any, *, shardings: Any = None):
+        return restore_checkpoint(self.directory, tree_like,
+                                  shardings=shardings)
+
+    def _gc(self) -> None:
+        steps = sorted(p for p in self.directory.iterdir()
+                       if p.is_dir() and p.name.startswith("step_"))
+        for p in steps[:-self.keep]:
+            shutil.rmtree(p)

@@ -1,0 +1,153 @@
+"""End-to-end training on one card.
+
+The port of ``repro/launch/train.py``: config -> train step (with credit
+counter) -> multicast data pipeline -> AdamW -> checkpoint manager ->
+fault-tolerant supervisor loop.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+      --reduced --device cpu --fused-adamw --steps 20 --batch 4 --seq 32
+
+``--fused-adamw`` sends the optimizer update through the fused AdamW
+kernel (CUDA on the card, its plain version on the CPU): the counterpart
+of the reference optimizer's ``use_pallas=True``, which the reference CLI
+has no switch for.  ``--device`` defaults to ``cuda`` and raises without a
+card.  ``run`` takes a ``ModelConfig``, so a caller can train a config cut
+to any depth.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.core.sync import credit_threshold
+from repro_torch.data import DataConfig, DataPipeline
+from repro_torch.launch.device import resolve_device
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import init_params, scaled_down
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import AdamWConfig, init_opt_state
+from repro_torch.runtime.fault import StepSupervisor, SupervisorConfig
+
+
+def build(arch: str, *, reduced: bool, opt: AdamWConfig | None = None,
+          vocab: int | None = None, fused_adamw: bool = False,
+          device: str | torch.device = "cuda"):
+    """Config, device and train step for ``arch``: (cfg, device, step)."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = scaled_down(cfg)
+        if vocab:
+            cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    if cfg.frontend == "vision_patches":
+        # Stub frontend: embeddings are "precomputed patches" — for the
+        # training run we train over token ids instead (text mode).
+        cfg = dataclasses.replace(cfg, frontend="")
+    dev = resolve_device(device)
+    step = make_train_step(cfg, opt_cfg=opt, remat=False,
+                           fused_adamw=fused_adamw)
+    return cfg, dev, step
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="chatglm3-6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=60)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--fused-adamw", action="store_true",
+                    help="update through the fused AdamW kernel")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 5),
+                      total_steps=args.steps)
+    cfg, dev, step = build(args.arch, reduced=args.reduced, opt=opt,
+                           fused_adamw=args.fused_adamw, device=args.device)
+    return run(cfg, step, steps=args.steps, batch=args.batch, seq=args.seq,
+               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+               log_every=args.log_every, resume=args.resume, device=dev)
+
+
+def run(cfg: ModelConfig, train_step, *, steps: int, batch: int, seq: int,
+        ckpt_dir: str | Path = "", ckpt_every: int = 50, log_every: int = 10,
+        resume: bool = False, device: str | torch.device = "cuda") -> dict:
+    """Train ``cfg`` for ``steps`` supervised steps of ``train_step``.
+
+    Parameters are drawn with seed 0 on ``device``; batches come from the
+    data pipeline with seed 1.  Returns the losses read at each logging
+    point, the steps done, and the supervisor's per-step seconds (host
+    queueing + credit wait), faults and restarts.
+    """
+    dev = resolve_device(device)
+    params = init_params(cfg, seed=0, device=dev)
+    opt_state = init_opt_state(params)
+
+    data = DataPipeline(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                   global_batch=batch, seed=1), dev)
+
+    ckpt_dir = ckpt_dir or Path(tempfile.gettempdir()) / \
+        f"repro_torch_ckpt_{cfg.name}"
+    ckpt = CheckpointManager(ckpt_dir, keep=2)
+    start_step = 0
+    if resume:
+        try:
+            (params, opt_state), start_step, _ = ckpt.restore_latest(
+                (params, opt_state))
+            print(f"resumed from step {start_step}")
+        except FileNotFoundError:
+            pass
+
+    def step_fn(state, tokens):
+        p, o = state
+        p, o, metrics = train_step(p, o, {"tokens": tokens})
+        return (p, o), metrics
+
+    sup = StepSupervisor(step_fn, ckpt,
+                         SupervisorConfig(ckpt_every=ckpt_every),
+                         credit_threshold=credit_threshold())
+
+    losses, step_seconds, faults, restarts = [], [], [], 0
+    t0 = time.time()
+    state = (params, opt_state)
+    step = start_step
+    try:
+        while step < steps:
+            state, rep = sup.run(state, data, min(step + log_every, steps),
+                                 start_step=step)
+            step += rep.steps_done
+            step_seconds += rep.step_seconds
+            faults += rep.faults
+            restarts += rep.restarts
+            loss = float(rep.final_metrics.get("loss", float("nan")))
+            losses.append(loss)
+            print(f"step {step:5d}  loss {loss:.4f}  "
+                  f"({(time.time() - t0):.1f}s)", flush=True)
+            if rep.preempted:
+                break
+    finally:
+        data.close()
+    return {"losses": losses, "steps": step, "cfg": cfg.name,
+            "step_seconds": step_seconds, "faults": faults,
+            "restarts": restarts, "params": state[0],
+            "opt_state": state[1]}
+
+
+if __name__ == "__main__":
+    out = main()
+    print(f"final loss: {out['losses'][-1]:.4f}")

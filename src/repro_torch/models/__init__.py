@@ -1,8 +1,9 @@
 """Dense decoder stack: config, layers, model and the reference-weight bridge."""
 
 from .config import ModelConfig, scaled_down
-from .model import (decode_step, forward, init_cache, init_params,
-                    merge_cache_slots, prefill)
+from .model import (cross_entropy, decode_step, forward, init_cache,
+                    init_params, merge_cache_slots, prefill)
 
 __all__ = ["ModelConfig", "scaled_down", "init_params", "forward",
-           "decode_step", "init_cache", "merge_cache_slots", "prefill"]
+           "cross_entropy", "decode_step", "init_cache", "merge_cache_slots",
+           "prefill"]

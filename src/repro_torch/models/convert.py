@@ -1,4 +1,5 @@
-"""Carry reference (JAX) parameter and cache trees across to the port.
+"""Carry reference (JAX) parameter, cache and optimizer-state trees across
+to the port.
 
 The caller passes the reference tree through ``np.asarray`` leaf by leaf
 (``jax.tree.map(np.asarray, tree)``); this module turns each numpy leaf
@@ -46,3 +47,12 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
 def caches_from_numpy(tree, device: str | torch.device = "cuda"):
     """A reference cache tree of numpy leaves -> the port's cache tree."""
     return _convert(tree, resolve_device(device))
+
+
+def opt_state_from_numpy(state, device: str | torch.device = "cuda"):
+    """A reference optimizer state ``{"m", "v", "step"}`` of numpy leaves ->
+    the port's: f32 moment trees and a 0-dim int32 step tensor."""
+    dev = resolve_device(device)
+    return {"m": _convert(state["m"], dev), "v": _convert(state["v"], dev),
+            "step": torch.as_tensor(np.array(state["step"]),
+                                    dtype=torch.int32, device=dev).reshape(())}

@@ -10,14 +10,17 @@ Python.
 
 Entry points:
   init_params(cfg, seed=, device=)              -> param tree
-  forward(params, cfg, tokens=)                 -> logits (B, S, V) f32
+  forward(params, cfg, tokens=, remat=)         -> logits (B, S, V) f32
+  cross_entropy(logits, targets, mask=)         -> mean next-token loss
   init_cache(cfg, batch, max_len, device=)      -> decode cache tree
   prefill(params, cfg, caches=, tokens=)        -> (logits, caches)
   decode_step(params, cfg, tokens, caches, cache_len, fused=)
                                                 -> (logits (B,1,V), caches)
 
 Caches are written in place; the functions also return them, as the
-reference returns its donated caches.
+reference returns its donated caches.  ``forward`` without caches is
+differentiable: the per-group views of a stacked leaf accumulate into that
+leaf's gradient.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.device import resolve_device
 
@@ -155,18 +159,30 @@ def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
 
 
 def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
-               cache_len=None, fused=False):
-    """The full groups in order, then the tail.  Returns (h, caches)."""
+               cache_len=None, fused=False, remat=False):
+    """The full groups in order, then the tail.  Returns (h, caches).
+
+    ``remat=True`` recomputes each group's activations in the backward
+    pass instead of keeping them (``torch.utils.checkpoint`` per group, the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``).
+    """
     def with_len(entry):
         return None if entry is None else dict(entry, len=cache_len)
 
-    for g in range(cfg.full_groups):
+    def group_body(hh, g: int):
         for i, kind in enumerate(cfg.pattern):
             entry = (_index(caches["groups"][i], g)
                      if caches is not None else None)
-            h, _ = _apply_block(h, _index(params["groups"][i], g), kind, cfg,
-                                positions=positions, cache=with_len(entry),
-                                fused=fused)
+            hh, _ = _apply_block(hh, _index(params["groups"][i], g), kind,
+                                 cfg, positions=positions,
+                                 cache=with_len(entry), fused=fused)
+        return hh
+
+    for g in range(cfg.full_groups):
+        if remat:
+            h = checkpoint(group_body, h, g, use_reentrant=False)
+        else:
+            h = group_body(h, g)
     for i, kind in enumerate(cfg.tail):
         entry = caches["tail"][i] if caches is not None else None
         h, _ = _apply_block(h, params["tail"][i], kind, cfg,
@@ -182,7 +198,30 @@ def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
+class _GradDtypeBarrier(torch.autograd.Function):
+    """Identity; casts the cotangent back to the activation dtype.
+
+    The reference places this at the logits boundary so that the f32
+    loss's cotangent does not keep the whole decoder backward in f32
+    (its ``_grad_dtype_barrier``, a ``jax.custom_vjp``).
+    """
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def _grad_dtype_barrier(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
+    return _GradDtypeBarrier.apply(x, _dtype(dtype_str))
+
+
 def logits_from_hidden(params, h, cfg: ModelConfig) -> torch.Tensor:
+    h = _grad_dtype_barrier(h, cfg.dtype)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = h.float() @ head.float()
@@ -202,14 +241,42 @@ def _hidden(params, cfg, tokens, embeds):
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-            positions=None) -> torch.Tensor:
+            positions=None, remat: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V)."""
     h = _hidden(params, cfg, tokens, embeds)
     b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None].expand(b, s)
-    h, _ = _run_stack(params, h, cfg, positions=positions)
+    h, _ = _run_stack(params, h, cfg, positions=positions, remat=remat)
     return logits_from_hidden(params, h, cfg)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE; logits (B,S,V) f32, targets (B,S) int.
+
+    The reference writes the default branch so that vocab-sharded logits
+    are never gathered: an explicit max/sum logsumexp with the max held
+    out of the gradient.  The port keeps that formulation, and the
+    ``REPRO_BASELINE`` branch's library logsumexp; on one device the gold
+    logit is a gather in both (the reference's one-hot einsum picks the
+    same f32 value).
+    """
+    from repro_torch.runtime.flags import baseline_mode
+    logits = logits[:, :-1]
+    targets = targets[:, 1:].long()
+    if baseline_mode():  # paper-faithful baseline: naive CE formulation
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        lmax = logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) \
+            + lmax[..., 0]
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask[:, 1:].to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None):
