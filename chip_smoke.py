@@ -10,16 +10,21 @@ printing a result:
   2. build: every CUDA kernel of the port (decode_attention, daxpy,
      fused_adamw), one nvcc each, all started together, from the sources
      here;
-  3. check: the decode-attention kernel against its plain PyTorch version
-     on the card — caches bit-exact, attention out within tolerance;
-  4. time: kernel and plain version at the chatglm3-6b decode shape (CUDA
+  3. check: the decode-attention kernels against their plain PyTorch
+     version on the card (the reference's cases, the serving shape, and the
+     serving shape with the new token on a chunk edge of the split) —
+     caches bit-exact, attention out within tolerance;
+  4. time: kernels and plain version at the chatglm3-6b decode shape (CUDA
      events, median, L2 flushed before each launch), beside the least time
-     the card could take (bytes over HBM rate or ops over peak rate);
+     the card could take (bytes over HBM rate or ops over peak rate); the
+     split's NSPLIT and each of its two kernels' device time
+     (torch.profiler);
   5. daxpy: the kernel against ``daxpy_plain``, bit-exact, on the shapes and
      dtypes of tests/test_kernels.py and every length 1..5000; the kernel
      ops' main path (``kernels.ops.daxpy``, one offloaded job per size) with
      its launches counted from 0; times at n = 2^10 .. 2^27 f32 beside the
-     bound, the plain version and ``torch.add(y, x, alpha=a)``;
+     bound, the plain version and ``torch.add(y, x, alpha=a)``, the kernel
+     and ``torch.add`` timed in turns (kernel, add, add, kernel);
   6. adamw: the kernel against ``adamw_plain`` on the cases of
      tests/test_kernels.py and on the training shape's largest leaf (m, v
      bit-exact, p within 1 ULP); one whole-tree update of the training
@@ -94,6 +99,33 @@ CASES = [
 ]
 FULL_CASE = ("chatglm3-6b-decode", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
              None, False, False, 0)   # lens drawn in [128, 160)
+# The serving shape with the new token on the first or last slot of a chunk
+# of the scores kernel's split (16 chunks of 10 slots at B=4, K=2, S=160),
+# in each cache dtype.
+EDGE_CASES = [
+    ("decode-chunk-edges", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
+     [130, 139, 0, 159], False, False, 0),
+    ("decode-chunk-edges-2", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
+     [9, 10, 149, 150], False, False, 0),
+    ("decode-chunk-edges-q8", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
+     [19, 20, 79, 80], True, False, 0),
+    ("decode-chunk-edges-f32", "chatglm3-6b", 4, 160, 32, 2, 128, "f32",
+     [10, 99, 100, 155], False, False, 0),
+]
+# (case, offset): cases that take the kernels' scalar-load build, where a
+# cache row of D * sizeof(cache) bytes is no multiple of 16 (int8 with D=8,
+# bf16 with D=12) or the caches start `offset` elements past a 16-byte
+# boundary (the serving shape in bf16 and int8).
+SCALAR_LOAD_CASES = [
+    (("narrow-head-q8", "granite-3-8b", 2, 32, 4, 4, 8, "bf16",
+      [7, 31], True, False, 0), 0),
+    (("narrow-head-bf16", "granite-3-8b", 2, 32, 4, 2, 12, "bf16",
+      [5, 30], False, False, 0), 0),
+    (("decode-unaligned-caches", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
+      [9, 10, 149, 150], False, False, 0), 1),
+    (("decode-unaligned-caches-q8", "chatglm3-6b", 4, 160, 32, 2, 128,
+      "bf16", [19, 20, 79, 80], True, False, 0), 3),
+]
 # daxpy: the shapes and dtypes of tests/test_kernels.py, and the sizes the
 # offload sweep times (f32).
 DAXPY_SHAPES = [(5,), (128,), (1000,), (8, 128), (3, 7, 11), (256, 256),
@@ -171,7 +203,18 @@ def clone(args):
     return [a.clone() if a is not None else None for a in args]
 
 
-def check_case(case, seed, dev) -> dict:
+def offset_copy(t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    allocation, so off a 16-byte boundary unless offset * itemsize is a
+    multiple of 16."""
+    import torch
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape).copy_(t)
+    assert out.data_ptr() % 16 == (offset * t.element_size()) % 16
+    return out
+
+
+def check_case(case, seed, dev, offset=0) -> dict:
     """Kernel vs plain version on one case; caches must be bit-exact."""
     import torch
     from repro_torch.kernels import decode_attention as DA
@@ -179,7 +222,10 @@ def check_case(case, seed, dev) -> dict:
     name, *_, dt, _, quant, is_ring, window = case
     args, lens = make_inputs(case, seed, dev)
     kw = dict(window=0 if is_ring else window, is_ring=is_ring)
-    got = DA.fused_decode_attention(*clone(args), **kw)
+    kargs = clone(args)
+    if offset:   # the kernel's caches off a 16-byte boundary
+        kargs[3], kargs[4] = (offset_copy(t, offset) for t in kargs[3:5])
+    got = DA.fused_decode_attention(*kargs, **kw)
     want = DA.decode_attention_plain(*clone(args), **kw)
     torch.cuda.synchronize()
     names = ("k_cache", "v_cache", "k_scale", "v_scale")
@@ -227,6 +273,47 @@ def time_ms(fn, dev, reps=200, warmup=20) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def _device_us(event) -> float:
+    """A profiler event's own device time in µs, under either of the names
+    torch versions give it."""
+    us = getattr(event, "self_device_time_total", None)
+    return getattr(event, "self_cuda_time_total", 0.0) if us is None else us
+
+
+def time_split(fn, dev, calls=100) -> dict:
+    """Device ms per call of each of the decode step's two kernels (mean of
+    ``calls`` profiled calls, L2 flushed before each), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = {"scores": 0.0, "pv": 0.0}
+    counts = {"scores": 0, "pv": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = _device_us(e)
+        for part in us:
+            if f"decode_attention_{part}" in e.key:
+                us[part] += t
+                counts[part] += e.count
+    res = {"calls": calls}
+    for part in us:
+        # None where the profiler saw no launch of that kernel.
+        res[f"{part}_ms"] = us[part] / 1e3 / calls if counts[part] else None
+        res[f"{part}_launches_profiled"] = counts[part]
+    return res
 
 
 def bound(case, args) -> tuple[float, str, float, float]:
@@ -336,9 +423,7 @@ def phase_profile(dev, warm=8, steps=4) -> dict:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue   # host ops also carry their kernels' device time
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        us = _device_us(e)
         if us > 0:
             by_kind[_kind(e.key)] += us / 1e3 / steps
             top.append((us / 1e3 / steps, e.count // steps, e.key[:90]))
@@ -365,7 +450,8 @@ def phase_profile(dev, warm=8, steps=4) -> dict:
         f"profiled); device busy {busy_ms:.3f} ms = attention "
         f"kernel {by_kind['decode_attention']:.3f} + matmul "
         f"{by_kind['matmul']:.3f} + other {by_kind['other']:.3f} ms "
-        f"({n_attn / steps:.0f} attention launches per step); idle share "
+        f"({n_attn / steps:.0f} attention kernel launches per step, two "
+        f"per call); idle share "
         f"{res['idle_share']}")
     for ms, calls, name in top[:10]:
         log(f"[profile]   {ms:8.3f} ms/step  {calls:4d} calls  {name}")
@@ -507,21 +593,32 @@ def time_daxpy(dev) -> list[dict]:
     rows = []
     for n in DAXPY_SIZES:
         x, y = _daxpy_inputs(n, dev)
-        kernel_ms = time_ms(lambda: DX.daxpy(2.5, x, y), dev)
+
+        def kernel():
+            DX.daxpy(2.5, x, y)
+
+        def add():
+            torch.add(y, x, alpha=2.5)
+
+        # In turns: kernel, add, add, kernel; each entry a median.
+        turns = [time_ms(f, dev) for f in (kernel, add, add, kernel)]
+        kernel_ms = (turns[0] + turns[3]) / 2
+        library_ms = (turns[1] + turns[2]) / 2
         plain_ms = time_ms(lambda: DX.daxpy_plain(2.5, x, y), dev)
-        library_ms = time_ms(lambda: torch.add(y, x, alpha=2.5), dev)
         nbytes = 12 * n                   # read x, y; write o (f32)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * n / PEAK_OPS_PER_S["f32"]
         row = {"n": n, "dtype": "f32", "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
+               "turns_kernel_add_add_kernel_ms": turns,
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "kernel_gb_s": nbytes / kernel_ms / 1e6}
         rows.append(row)
-        log(f"[daxpy] n=2^{n.bit_length() - 1} f32: kernel {kernel_ms:.4f} ms"
-            f" ({row['kernel_gb_s']:.0f} GB/s), plain {plain_ms:.4f} ms, "
-            f"torch.add {library_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']})")
+        log(f"[daxpy] n=2^{n.bit_length() - 1} f32: kernel {turns[0]:.4f} / "
+            f"{turns[3]:.4f} ms (first / last turn; {row['kernel_gb_s']:.0f} "
+            f"GB/s at their mean), torch.add {turns[1]:.4f} / {turns[2]:.4f} "
+            f"ms (second / third turn), plain {plain_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
         del x, y
     return rows
 
@@ -797,9 +894,7 @@ def profile_train_step(dev, cfg, step, out) -> dict:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        us = _device_us(e)
         if us > 0:
             kind = _train_kind(e.key)
             by_kind[kind if kind in by_kind else "other"] += us / 1e3
@@ -920,7 +1015,9 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # 3. Decode-attention kernel vs plain version.
-    results["checks"] = [check_case(c, 0, dev) for c in CASES]
+    results["checks"] = [check_case(c, 0, dev) for c in CASES + EDGE_CASES]
+    results["checks"] += [check_case(c, 0, dev, off)
+                          for c, off in SCALAR_LOAD_CASES]
     results["checks"] += [check_case(FULL_CASE, s, dev) for s in range(3)]
     full_err = max(c["max_abs_err"] for c in results["checks"]
                    if c["case"] == FULL_CASE[0])
@@ -930,16 +1027,25 @@ def main() -> int:
     a_kernel, a_plain = clone(args), clone(args)
     kernel_ms = time_ms(lambda: DA.fused_decode_attention(*a_kernel), dev)
     plain_ms = time_ms(lambda: DA.decode_attention_plain(*a_plain), dev)
+    split = time_split(lambda: DA.fused_decode_attention(*a_kernel), dev)
     bound_ms, bound_by, nbytes, ops = bound(FULL_CASE, args)
+    nsplit, chunk = DA.split_plan(
+        FULL_CASE[2], FULL_CASE[5], FULL_CASE[3],
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     results["timing"] = {"shape": "B=4 S=160 H=32 K=2 D=128 W=32 bf16",
                          "lens": lens, "kernel_ms": kernel_ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                         "nsplit": nsplit, "chunk": chunk, **split,
                          "l2": "flushed before each launch"}
     log(f"[time] fused_decode_attention at {results['timing']['shape']}, "
         f"lens {lens}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B / 3.35 TB/s, "
         f"{ops} ops)")
+    log(f"[time] NSPLIT {nsplit} (chunks of {chunk} slots): scores kernel "
+        f"{split['scores_ms']} ms + p@V kernel {split['pv_ms']} ms of device "
+        f"time per call (torch.profiler, mean of {split['calls']} calls), "
+        f"whole call {kernel_ms:.4f} ms (CUDA events)")
     del args, a_kernel, a_plain
 
     # 5. daxpy: check, the kernel ops' main path, timing.
@@ -981,7 +1087,9 @@ def main() -> int:
          "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": results["serve"]["launches"], "max_abs_err": full_err,
          "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+         "scores_ms": split["scores_ms"], "pv_ms": split["pv_ms"],
+         "nsplit": nsplit, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

@@ -4,9 +4,10 @@ The port of ``repro/kernels/daxpy.py``.  The paper offloads DAXPY to M
 accelerator clusters; the TPU kernel streams ``(rows, 128)`` blocks through
 VMEM.  Two implementations of the same function live here:
 
-  * the CUDA C++ kernel ``csrc/daxpy.cu`` for ``sm_90a``: a grid-stride
-    loop over the flat tensors with 16-byte vector loads.  Its source note
-    gives its bound on the card (bytes) and what the design does about it;
+  * the CUDA C++ kernel ``csrc/daxpy.cu`` for ``sm_90a``: one tile per
+    block over the flat tensors, each thread with two independent 16-byte
+    loads of x and two of y in flight.  Its source note gives its bound on
+    the card (bytes) and what the design does about it;
   * ``daxpy_plain``, plain PyTorch: the counterpart of ``kernels/ref.py``'s
     ``daxpy``.  ``a`` is rounded to x's dtype first, then ``a * x + y``
     runs as two eager ops.

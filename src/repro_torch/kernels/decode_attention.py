@@ -1,4 +1,4 @@
-"""Fused decode-attention step: rope + KV scatter + attend, one launch.
+"""Fused decode-attention step: rope + KV scatter + attend, one call.
 
 The port of ``repro/kernels/decode_attention.py``.  For each batch row it
 rotates q and the new k over their leading ``2 * W`` dims from precomputed
@@ -10,17 +10,24 @@ The caches are updated in place, the counterpart of the reference's
 
 Two implementations of the same function live here:
 
-  * the CUDA C++ kernel ``csrc/decode_attention.cu`` for ``sm_90a``, one
-    CTA per (batch row, kv head) so the ``H/K`` q heads of a GQA group
-    share one K/V stream.  Its source note gives its bound on the card
-    (bytes) and what the design does about it;
+  * the CUDA C++ kernels ``csrc/decode_attention.cu`` for ``sm_90a``, two
+    launches per call on the caller's stream.  Kernel A, on a
+    (B, K, NSPLIT) grid, ropes q, writes the new token (in the one CTA
+    whose chunk of slots holds it) and scores its chunk of slots into an
+    f32 scratch; kernel B, one CTA per q head, takes the softmax over the
+    whole score row and p@V.  NSPLIT comes from the shapes alone
+    (``split_plan``), so nothing is read back from the card.  At the
+    serving shape the step is bound by latency and by how many SMs it
+    keeps busy, not by bytes; the source note says what the split does
+    about it;
   * ``decode_attention_plain``, plain PyTorch that follows the reference's
     ``_decode_kernel`` step for step.  The CPU tests hold it against the
-    reference, and the chip smoke run holds the kernel against it.
+    reference, and the chip smoke run holds the kernels against it.
 
 ``fused_decode_attention`` takes the plain version only for tensors that
-lie on the CPU; CUDA tensors go to the kernel or raise.  Every launch adds
-one to ``LAUNCHES``.
+lie on the CPU; CUDA tensors go to the kernels or raise.  Every call that
+launches them adds one to ``LAUNCHES`` (one call, two launches), so a
+serving run counts one per attention layer and decode step.
 """
 
 from __future__ import annotations
@@ -45,17 +52,38 @@ _ENTRIES = {
     (torch.float32, torch.int8): "decode_attention_q8_f32",
     (torch.bfloat16, torch.int8): "decode_attention_q8_bf16",
 }
-_MAX_HEAD_DIM = 256          # kMaxDPerLane * 32 in the kernel
+_MAX_HEAD_DIM = 256          # kMaxHeadDim in the kernels
 _MAX_SMEM = 227 * 1024       # shared memory one Hopper CTA may use
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_STAGE = 32                  # K rows kernel A stages at a time (kStage)
+_MIN_CHUNK = 8               # about the fewest slots worth a CTA of kernel A
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def split_plan(batch: int, kv_heads: int, slots: int,
+               sms: int) -> tuple[int, int]:
+    """``(nsplit, chunk)``: how kernel A cuts the slot axis on a card of
+    ``sms`` SMs.
+
+    From shapes alone, never from the row lengths (reading them would sync
+    the stream): about one CTA per SM over the ``batch * kv_heads`` groups,
+    but no more than ``ceil(slots / _MIN_CHUNK)`` chunks.  ``chunk =
+    ceil(slots / nsplit)``, as the kernel derives it from its grid, and no
+    chunk is empty.
+    """
+    if min(batch, kv_heads, slots, sms) < 1:
+        raise ValueError(f"no split of batch={batch}, kv_heads={kv_heads}, "
+                         f"slots={slots} on {sms} SMs")
+    want = min(-(-slots // _MIN_CHUNK), max(1, sms // (batch * kv_heads)))
+    chunk = -(-slots // want)
+    return -(-slots // chunk), chunk
 
 
 def pick_chunk(slots: int) -> int:
     """Largest power-of-two score-chunk size (<=64) dividing ``slots``.
 
     Kept from the reference, whose TPU kernel scores the cache in chunks of
-    this size.  The CUDA kernel scores slot by slot, so the chunk does not
-    change what either version computes.
+    this size.  The CUDA kernels cut the slots by ``split_plan`` instead;
+    neither chunking changes what a score is.
     """
     for c in (64, 32, 16, 8, 4, 2, 1):
         if slots % c == 0:
@@ -199,8 +227,10 @@ def _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
         raise ValueError(f"rope width 2*W={2 * w} must be in (0, D={d}]")
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}")
-    if (h // kh) * d * 4 > _MAX_SMEM:
-        raise ValueError(f"G*D = {(h // kh) * d} floats exceed shared memory")
+    if (h // kh + _STAGE) * (d + 1) * 4 > _MAX_SMEM:
+        raise ValueError(f"(G + {_STAGE}) * (D + 1) = "
+                         f"{(h // kh + _STAGE) * (d + 1)} floats exceed "
+                         "shared memory")
     if window < 0:
         raise ValueError("window must be >= 0")
 
@@ -218,6 +248,9 @@ def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
     out = torch.empty_like(q)
     scratch = torch.empty((b, kh, h // kh, slots), dtype=torch.float32,
                           device=q.device)
+    # The SM count is cached by torch; reading it does not sync the stream.
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit, _ = split_plan(b, kh, slots, sms)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -227,7 +260,7 @@ def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
         rc = fn(ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache), ptr(v_cache),
                 ptr(k_scale), ptr(v_scale), ptr(lens), ptr(cos), ptr(sin),
                 ptr(out), ptr(scratch), b, slots, h, kh, d, cos.shape[-1],
-                int(window), int(bool(is_ring)), stream)
+                int(window), int(bool(is_ring)), nsplit, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -245,7 +278,7 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     pre-write lengths, an int or (B,) int32; cos/sin (B,...,W) f32.  Plain
     caches return ``(out, k_cache, v_cache)`` and quantised caches also the
     scales, all updated in place.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel.
+    tensors launch the two kernels (one count in ``LAUNCHES``).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
@@ -266,4 +299,4 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
 
 
 __all__ = ["fused_decode_attention", "decode_attention_plain", "pick_chunk",
-           "quantize_kv", "NEG_INF"]
+           "quantize_kv", "split_plan", "NEG_INF"]

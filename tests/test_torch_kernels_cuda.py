@@ -1,11 +1,16 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the card.
 
-The checks are chip_smoke.py's own (the decode-attention kernel's cuda
-tests are in tests/test_torch_decode_kernel.py):
+The checks are chip_smoke.py's own (the decode-attention kernels' cuda
+tests on the reference's cases are in tests/test_torch_decode_kernel.py):
   * daxpy: bit-exact, on tests/test_kernels.py's shapes and dtypes, every
-    length 1..5000 and unaligned views;
+    length 1..5000 and unaligned views, and at n = 2^24;
   * fused AdamW: m and v bit-exact, p within one ULP, on
-    tests/test_kernels.py's cases.
+    tests/test_kernels.py's cases;
+  * decode attention: the serving shape with the new token on the first or
+    last slot of a chunk of the scores kernel's split, and the cases that
+    take the kernels' scalar-load build (rows that are no multiple of 16
+    bytes, caches off a 16-byte boundary): caches bit-exact, out within
+    chip_smoke.py's ``TOL``.
 
 This file imports neither jax nor the reference package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import daxpy as DX
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import fused_adamw as FA
 
 
@@ -49,6 +55,26 @@ def test_daxpy_kernel_matches_plain_version(card):
     before = DX.LAUNCHES
     assert SMOKE.check_daxpy(card)["max_abs_err"] == 0.0
     assert DX.LAUNCHES > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_daxpy_kernel_bit_exact_at_2_24(card, dt):
+    x, y = SMOKE._daxpy_inputs(2 ** 24, card)
+    x, y = x.to(SMOKE._dtype(dt)), y.to(SMOKE._dtype(dt))
+    assert torch.equal(DX.daxpy(-1.75, x, y), DX.daxpy_plain(-1.75, x, y))
+
+
+DECODE_CASES = [(c, 0) for c in SMOKE.EDGE_CASES] + SMOKE.SCALAR_LOAD_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,offset", DECODE_CASES,
+                         ids=[c[0] for c, _ in DECODE_CASES])
+def test_decode_attention_kernels_match_plain_version(card, case, offset):
+    before = DA.LAUNCHES
+    SMOKE.check_case(case, 0, card, offset)
+    assert DA.LAUNCHES == before + 1      # one count per call, two launches
 
 
 @pytest.mark.cuda
