@@ -11,9 +11,11 @@ printing a result:
      fused_adamw), one nvcc each, all started together, from the sources
      here;
   3. check: the decode-attention kernels against their plain PyTorch
-     version on the card (the reference's cases, the serving shape, and the
-     serving shape with the new token on a chunk edge of the split) —
-     caches bit-exact, attention out within tolerance;
+     version on the card (the reference's cases, the serving shape, the
+     serving shape with the new token on a chunk edge of the split, and the
+     streaming shape: S = the streaming trace's max_len, lens 0, S - 1 and
+     chunk edges, bf16 and int8 caches) — caches bit-exact, attention out
+     within tolerance;
   4. time: kernels and plain version at the chatglm3-6b decode shape (CUDA
      events, median, L2 flushed before each launch), beside the least time
      the card could take (bytes over HBM rate or ops over peak rate); the
@@ -35,6 +37,16 @@ printing a result:
      fused decode step; the kernel must launch 28 * (gen - 1) times and
      every step's credit counter must read its threshold; then a profile
      of a few warm decode steps: host wall per step vs device time by kind;
+     then the streaming path, ``serve_workload`` -> ``ContinuousBatcher``
+     with the CLI's defaults (48 requests at 2e6 req/s, seed 0) on the
+     wall-clock fabric with the fused decode step: the kernel must launch
+     28 x (decode jobs + one warm-up decode per distinct prompt length),
+     every credit read must be at its threshold, every admitted request
+     completed with in-range tokens; the same with the pipelined loop; a
+     profile of warm decode steps at the streaming shape (S = 1040, four
+     slot lengths); then the same trace at 4 layers in f32 on the
+     simulated fabric, fused, unfused and fused-pipelined: equal token
+     streams;
   8. train: chatglm3-6b at full width, depth cut to 8 layers, through
      ``repro_torch.launch.train.run`` with the fused AdamW kernel under the
      step supervisor: 8 steps of 4 x 512 tokens; the kernel must launch
@@ -126,6 +138,10 @@ SCALAR_LOAD_CASES = [
     (("decode-unaligned-caches-q8", "chatglm3-6b", 4, 160, 32, 2, 128,
       "bf16", [19, 20, 79, 80], True, False, 0), 3),
 ]
+# The streaming path: the CLI's default trace (``python -m
+# repro_torch.launch.serve``), and the depth of its fused-vs-unfused check.
+STREAM_REQUESTS, STREAM_RATE, STREAM_SEED = 48, 2e6, 0
+STREAM_CHECK_LAYERS = 4
 # daxpy: the shapes and dtypes of tests/test_kernels.py, and the sizes the
 # offload sweep times (f32).
 DAXPY_SHAPES = [(5,), (128,), (1000,), (8, 128), (3, 7, 11), (256, 256),
@@ -383,6 +399,204 @@ def phase_serve(dev) -> dict:
     return res
 
 
+def stream_spec():
+    from repro_torch.serve import WorkloadSpec
+    return WorkloadSpec(num_requests=STREAM_REQUESTS, rate_rps=STREAM_RATE,
+                        seed=STREAM_SEED)
+
+
+def stream_max_len() -> int:
+    """The cache length ``serve_workload`` sizes for the streaming trace."""
+    from repro_torch.configs import get_config
+    spec = replace(stream_spec(), vocab_size=get_config(ARCH).vocab_size)
+    return max(r.prompt_len + r.gen_len for r in spec.build())
+
+
+def stream_cases(sms: int) -> list:
+    """The decode kernel at the streaming shape: B=4, S = the trace's
+    max_len, with the new token at 0, S - 1 and on chunk edges."""
+    from repro_torch.kernels import decode_attention as DA
+    s = stream_max_len()
+    _, chunk = DA.split_plan(4, 2, s, sms)
+    shape = ("chatglm3-6b", 4, s, 32, 2, 128, "bf16")
+    return [("stream-edges", *shape, [0, s - 1, chunk - 1, chunk],
+             False, False, 0),
+            ("stream-edges-q8", *shape, [2 * chunk - 1, 0, s - 1, 2 * chunk],
+             True, False, 0),
+            ("stream-drawn", *shape, None, False, False, 0)]
+
+
+def phase_stream(dev, pipeline: bool = False) -> dict:
+    """The streaming path at full width: ``serve_workload`` with the CLI's
+    defaults on the wall-clock fabric, fused decode on; ``pipeline`` runs
+    the pipelined loop instead of the continuous one."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import (CreditCounterSync, FaultDetected,
+                                       credit_threshold)
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import RequestState, ServeConfig, serve_workload
+
+    cfg = get_config(ARCH)
+    reads = []
+    wait = CreditCounterSync.wait
+
+    def recording_wait(self, credits):
+        try:
+            got = wait(self, credits)
+        except FaultDetected:
+            reads.append(None)
+            raise
+        reads.append(got)
+        return got
+
+    tracer = Tracer()     # its wall-domain spans give the decode seconds
+    torch.cuda.reset_peak_memory_stats(dev)
+    CreditCounterSync.wait = recording_wait
+    try:
+        DA.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = serve_workload(stream_spec(), config=ServeConfig(
+            arch=ARCH, reduced=False, fused_decode=True, fabric="wallclock",
+            pipeline=pipeline, device=dev, tracer=tracer))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = DA.LAUNCHES
+    finally:
+        CreditCounterSync.wait = wait
+    m, reqs = out["metrics"], out["requests"]
+    threshold = credit_threshold()
+    n_lengths = len({r.prompt_len for r in reqs})   # one warm-up each
+    expect = cfg.num_layers * (m.decode_jobs + n_lengths)
+    if launches != expect:
+        raise AssertionError(f"kernel launched {launches} times while "
+                             f"streaming, expected {cfg.num_layers} x "
+                             f"({m.decode_jobs} + {n_lengths})")
+    n_reads = m.prefill_jobs + m.decode_jobs + 2 * n_lengths
+    if len(reads) != n_reads or any(r != threshold for r in reads):
+        raise AssertionError(f"{len(reads)} credit reads (expected "
+                             f"{n_reads}), below threshold: "
+                             f"{[r for r in reads if r != threshold]}")
+    admitted = [r for r in reqs if r.state is not RequestState.REJECTED]
+    if (len(admitted) != m.admitted or m.completed != m.admitted
+            or m.dropped or out["orphans"]
+            or any(r.state is not RequestState.DONE for r in admitted)):
+        raise AssertionError(f"admitted {m.admitted}, completed "
+                             f"{m.completed}, dropped {m.dropped}")
+    for r in admitted:
+        toks = r.generated
+        if len(toks) != r.gen_len or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: tokens {toks}")
+    decode_s = sum(e.dur for e in tracer.events
+                   if e.domain == "wall_s" and e.name == "decode")
+    prefill_s = sum(e.dur for e in tracer.events
+                    if e.domain == "wall_s" and e.name == "prefill")
+    decode_tokens = sum(p.n_elems for p in out["plans"] if p.kind == "decode")
+    snap = out["calibration"]
+    summ = m.summary()
+    lat = summ["latency_us"]
+    loop = "pipelined" if pipeline else "continuous"
+    res = {"arch": ARCH, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "loop": loop, "pipelined_prefills": m.pipelined_prefills,
+           "requests": STREAM_REQUESTS, "rate_rps": STREAM_RATE,
+           "seed": STREAM_SEED, "max_len": stream_max_len(),
+           "prompt_lengths": n_lengths, "admitted": m.admitted,
+           "rejected": m.rejected, "completed": m.completed,
+           "prefill_jobs": m.prefill_jobs, "decode_jobs": m.decode_jobs,
+           "launches": launches, "credit_reads": len(reads),
+           "decode_tokens": decode_tokens, "decode_s": decode_s,
+           "prefill_s": prefill_s,
+           "decode_tok_s": decode_tokens / decode_s,
+           "decode_rows_tok_s": 4 * m.decode_jobs / decode_s,
+           "latency_p50_s": lat["p50"] / 1e6, "latency_p99_s": lat["p99"] / 1e6,
+           "ttft_p99_s": summ["ttft_us"]["p99"] / 1e6,
+           "step_p50_ms": summ["wall"]["step_p50_ms"],
+           "slot_occupancy_mean": summ["slot_occupancy"]["mean"],
+           "mid_wave_admissions": m.mid_wave_admissions,
+           "calibration": snap.as_dict(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "serve_wall_s": wall}
+    card = card_line()
+    log(f"[stream] {card}: {ARCH} full width ({cfg.num_layers} layers, "
+        f"{cfg.dtype}), {STREAM_REQUESTS} requests at {STREAM_RATE:g} req/s "
+        f"(seed {STREAM_SEED}), wall-clock fabric, {loop} loop, fused "
+        f"decode, max_len {res['max_len']}")
+    log(f"[stream] {card}: admitted {m.admitted}, rejected {m.rejected}, "
+        f"completed {m.completed}; prefill jobs {m.prefill_jobs}, decode "
+        f"jobs {m.decode_jobs}; kernel launches {launches} == "
+        f"{cfg.num_layers} x ({m.decode_jobs} + {n_lengths} warm-up); "
+        f"credit reads {len(reads)}/{n_reads} at threshold; "
+        f"{m.pipelined_prefills} pipelined prefills")
+    log(f"[stream] {card}: decode {decode_tokens} tokens in {decode_s:.4f} "
+        f"s of decode-step wall = {res['decode_tok_s']:.1f} tok/s "
+        f"({res['decode_rows_tok_s']:.1f} counting all 4 rows); step p50 "
+        f"{res['step_p50_ms']:.2f} ms; request latency p50 "
+        f"{res['latency_p50_s']:.4f} s, p99 {res['latency_p99_s']:.4f} s; "
+        f"slot occupancy {res['slot_occupancy_mean']:.3f}")
+    mape = snap.window_mape_pct
+    log(f"[stream] {card}: calibrated [{snap.source}, {snap.n_samples} "
+        f"samples]: alpha {snap.alpha:.1f} beta {snap.beta:.4f} gamma "
+        f"{snap.gamma:.4f} (cycles = ns), window MAPE "
+        f"{'n/a' if mape is None else f'{mape:.2f}%'}; max_memory_allocated "
+        f"{res['max_memory_allocated'] / 2**30:.2f} GiB; wall {wall:.1f} s "
+        f"(weights drawn on the card and the warm-up included)")
+    return res
+
+
+def phase_stream_fused_vs_unfused(dev) -> dict:
+    """The streaming trace at full width, depth cut, f32, on the simulated
+    fabric (a fixed schedule): fused and unfused decoding, and the fused
+    pipelined loop, must give the same token stream for every request."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import init_params
+    from repro_torch.serve import RequestState, ServeConfig, serve_workload
+
+    cfg = replace(get_config(ARCH), num_layers=STREAM_CHECK_LAYERS,
+                  dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)   # serving leaves it as is
+    runs = {"fused": (True, False), "unfused": (False, False),
+            "fused-pipelined": (True, True)}
+    streams, plans, launches = {}, {}, {}
+    for name, (fused, pipeline) in runs.items():
+        DA.LAUNCHES = 0
+        out = serve_workload(stream_spec(), config=ServeConfig(
+            arch=cfg, reduced=False, fused_decode=fused, fabric="simulated",
+            pipeline=pipeline, device=dev, params=params))
+        launches[name] = DA.LAUNCHES
+        streams[name] = {r.rid: r.generated.tolist() for r in out["requests"]
+                         if r.state is RequestState.DONE}
+        plans[name] = [(p.kind, p.n_elems, p.m) for p in out["plans"]]
+    if plans["fused"] != plans["unfused"] or not streams["fused"]:
+        raise AssertionError("the simulated schedule differs between runs")
+    for name in ("unfused", "fused-pipelined"):
+        if streams[name].keys() != streams["fused"].keys():
+            raise AssertionError(f"{name}: other requests completed")
+        bad = [rid for rid in streams["fused"]
+               if streams[name][rid] != streams["fused"][rid]]
+        if bad:
+            raise AssertionError(f"fused and {name} token streams differ for "
+                                 f"requests {bad}")
+    # Every decode step runs on the engine, offloaded or kept on the host.
+    for name in runs:
+        steps = sum(p[0] == "decode" for p in plans[name])
+        want = STREAM_CHECK_LAYERS * steps if runs[name][0] else 0
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} kernel launches, "
+                                 f"expected {want}")
+    n_tok = sum(len(v) for v in streams["fused"].values())
+    log(f"[stream-check] f32, full width, depth cut to "
+        f"{STREAM_CHECK_LAYERS} layers, simulated fabric: fused, unfused "
+        f"and fused-pipelined token streams equal for "
+        f"{len(streams['fused'])} requests ({n_tok} tokens; kernel launches "
+        f"{launches})")
+    return {"layers": STREAM_CHECK_LAYERS, "dtype": "float32",
+            "requests": len(streams["fused"]), "tokens": n_tok,
+            "launches": launches}
+
+
 def _kind(name: str) -> str:
     if "decode_attention" in name:
         return "decode_attention"
@@ -392,32 +606,39 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def phase_profile(dev, warm=8, steps=4) -> dict:
+def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
+                  lens=None, tag="profile") -> dict:
     """Where a full-width decode step's time goes: host wall per step vs
-    device time by kernel kind (torch.profiler over a few warm steps)."""
+    device time by kernel kind (torch.profiler over a few warm steps).
+
+    ``lens`` (one per slot) decodes each slot at its own length, as the
+    streaming path does; by default every slot decodes at ``prompt_len``
+    onwards."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.batcher import ServingEngine
 
-    eng = ServingEngine(ARCH, reduced=False, max_batch=4, max_len=160,
+    eng = ServingEngine(ARCH, reduced=False, max_batch=4, max_len=max_len,
                         fused_decode=True, device=dev)
     prompt = np.random.default_rng(1).integers(
-        0, eng.cfg.vocab_size, (4, 128), dtype=np.int32)
+        0, eng.cfg.vocab_size, (4, prompt_len), dtype=np.int32)
     tok, caches, _ = eng.prefill(prompt)
-    pos, walls = 128, []
+    pos = (np.full(4, prompt_len, np.int32) if lens is None
+           else np.asarray(lens, np.int32))
+    walls = []
     for _ in range(warm):
         tok, caches, w = eng.decode(tok[:, None], caches, pos)
         walls.append(w)
-        pos += 1
+        pos = pos + 1
     prof_walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         for _ in range(steps):
             tok, caches, w = eng.decode(tok[:, None], caches, pos)
             prof_walls.append(w)
-            pos += 1
+            pos = pos + 1
     by_kind = {"decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
     n_attn, top = 0, []
     for e in prof.key_averages():
@@ -434,7 +655,9 @@ def phase_profile(dev, warm=8, steps=4) -> dict:
     # Busy and wall time both of the profiled steps.
     prof_wall_ms = sum(prof_walls) / steps * 1e3
     busy_ms = sum(by_kind.values())
-    res = {"shape": "B=4, S=160 slots, lens 136..139, fused decode",
+    first = pos - warm - steps
+    res = {"shape": f"B=4, S={max_len} slots, lens {first.tolist()} + "
+                    f"{warm}..{warm + steps - 1}, fused decode",
            "warm_steps": warm, "profiled_steps": steps,
            "step_wall_ms_median": wall_ms,
            "profiled_step_wall_ms": prof_wall_ms,
@@ -444,8 +667,9 @@ def phase_profile(dev, warm=8, steps=4) -> dict:
            "attention_kernels_per_step": n_attn / steps,
            "top_kernels_ms_calls_name": top[:10]}
     if busy_ms == 0:
-        log("[profile] torch.profiler saw no device time")
-    log(f"[profile] decode step: host-measured {wall_ms:.3f} ms (median of "
+        log(f"[{tag}] torch.profiler saw no device time")
+    log(f"[{tag}] {res['shape']}")
+    log(f"[{tag}] decode step: host-measured {wall_ms:.3f} ms (median of "
         f"{warm}, unprofiled), {prof_wall_ms:.3f} ms (mean of the {steps} "
         f"profiled); device busy {busy_ms:.3f} ms = attention "
         f"kernel {by_kind['decode_attention']:.3f} + matmul "
@@ -454,7 +678,7 @@ def phase_profile(dev, warm=8, steps=4) -> dict:
         f"per call); idle share "
         f"{res['idle_share']}")
     for ms, calls, name in top[:10]:
-        log(f"[profile]   {ms:8.3f} ms/step  {calls:4d} calls  {name}")
+        log(f"[{tag}]   {ms:8.3f} ms/step  {calls:4d} calls  {name}")
     return res
 
 
@@ -1021,6 +1245,12 @@ def main() -> int:
     results["checks"] += [check_case(FULL_CASE, s, dev) for s in range(3)]
     full_err = max(c["max_abs_err"] for c in results["checks"]
                    if c["case"] == FULL_CASE[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s_cases = stream_cases(sms)
+    s_nsplit, s_chunk = DA.split_plan(4, 2, s_cases[0][3], sms)
+    log(f"[check] streaming shape S={s_cases[0][3]}: NSPLIT {s_nsplit}, "
+        f"chunks of {s_chunk} slots")
+    results["checks"] += [check_case(c, 0, dev) for c in s_cases]
 
     # 4. Timing at the full decode shape.
     args, lens = make_inputs(FULL_CASE, 0, dev)
@@ -1047,6 +1277,24 @@ def main() -> int:
         f"time per call (torch.profiler, mean of {split['calls']} calls), "
         f"whole call {kernel_ms:.4f} ms (CUDA events)")
     del args, a_kernel, a_plain
+    # ... and at the streaming shape (lens drawn in [128, S)).
+    s_case = s_cases[-1]
+    args, s_lens = make_inputs(s_case, 0, dev)
+    a_kernel, a_plain = clone(args), clone(args)
+    s_bound = bound(s_case, args)
+    results["stream_timing"] = {
+        "shape": f"B=4 S={s_case[3]} H=32 K=2 D=128 W=32 bf16",
+        "lens": s_lens, "nsplit": s_nsplit, "chunk": s_chunk,
+        "kernel_ms": time_ms(lambda: DA.fused_decode_attention(*a_kernel),
+                             dev),
+        "plain_ms": time_ms(lambda: DA.decode_attention_plain(*a_plain), dev),
+        "bound_ms": s_bound[0], "bound_by": s_bound[1], "bytes": s_bound[2],
+        "ops": s_bound[3]}
+    st = results["stream_timing"]
+    log(f"[time] fused_decode_attention at {st['shape']}, lens {s_lens}: "
+        f"kernel {st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+        f"bound {st['bound_ms']:.6f} ms ({st['bound_by']})")
+    del args, a_kernel, a_plain
 
     # 5. daxpy: check, the kernel ops' main path, timing.
     results["daxpy_check"] = check_daxpy(dev)
@@ -1066,6 +1314,19 @@ def main() -> int:
     results["serve"] = phase_serve(dev)
     free()
     results["profile"] = phase_profile(dev)
+    free()
+    # The streaming path: its launches counted from 0; then its trace,
+    # depth cut, fused against unfused.
+    results["stream"] = phase_stream(dev)
+    free()
+    results["stream_pipelined"] = phase_stream(dev, pipeline=True)
+    free()
+    s_len = results["stream"]["max_len"]
+    results["stream_profile"] = phase_profile(
+        dev, max_len=s_len, prompt_len=256,
+        lens=[256, 511, 767, s_len - 17], tag="stream-profile")
+    free()
+    results["stream_check"] = phase_stream_fused_vs_unfused(dev)
     free()
 
     # 8. Training at full width, depth cut: its main path, launches from 0.
@@ -1089,7 +1350,11 @@ def main() -> int:
          "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
          "scores_ms": split["scores_ms"], "pv_ms": split["pv_ms"],
          "nsplit": nsplit, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None},
+         "library_ms": None,
+         "stream_launches": results["stream"]["launches"],
+         "stream_shape_ms": st["kernel_ms"],
+         "stream_shape_plain_ms": st["plain_ms"],
+         "stream_shape_bound_ms": st["bound_ms"]},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

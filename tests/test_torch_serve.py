@@ -85,14 +85,19 @@ def test_one_shot_default_prompts_are_seeded():
 
 
 def test_cli_one_shot_and_unported_streaming(capsys):
+    """The one-shot CLI, the ported streaming CLI, and the fleet mode that
+    is still unported (ROADMAP A11)."""
     out = main(["--one-shot", "--arch", ARCH, "--prompts", "2",
                 "--prompt-len", "4", "--gen", "2", "--device", "cpu"])
     assert out["generated"].shape == (2, 2)
     assert "offload decision" in capsys.readouterr().out
+    out = main(["--arch", ARCH, "--device", "cpu", "--requests", "3"])
+    assert out["metrics"].submitted == 3
+    assert "calibrated model" in capsys.readouterr().out
     with pytest.raises(SystemExit) as exc:
-        main(["--arch", ARCH, "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not yet ported (ROADMAP A8)" in capsys.readouterr().err
+        main(["--arch", ARCH, "--device", "cpu", "--fleet", "32,8"])
+    assert exc.value.code == 2
+    assert "not yet ported (ROADMAP A11)" in capsys.readouterr().err
 
 
 # --------------------------------------------------------------------------- #
