@@ -13,14 +13,18 @@ printing a result:
   3. check: the decode-attention kernels against their plain PyTorch
      version on the card (the reference's cases, the serving shape, the
      serving shape with the new token on a chunk edge of the split, and the
-     streaming shape: S = the streaming trace's max_len, lens 0, S - 1 and
-     chunk edges, bf16 and int8 caches) — caches bit-exact, attention out
-     within tolerance;
-  4. time: kernels and plain version at the chatglm3-6b decode shape (CUDA
-     events, median, L2 flushed before each launch), beside the least time
-     the card could take (bytes over HBM rate or ops over peak rate); the
-     split's NSPLIT and each of its two kernels' device time
-     (torch.profiler);
+     streaming shapes of chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b's
+     shared attention: S = the streaming trace's max_len, lens 0, S - 1
+     and chunk edges, bf16 and int8 caches) — caches bit-exact, attention
+     out within tolerance; then the serving engine queues a
+     prefill-into-slots step and decode steps under
+     ``torch.cuda.set_sync_debug_mode("error")`` (reduced chatglm3-6b,
+     qwen3-moe-30b-a3b and zamba2-1.2b) without raising;
+  4. time: kernels and plain version at the chatglm3-6b decode shape and
+     at the three streaming shapes (CUDA events, median, L2 flushed before
+     each launch), beside the least time the card could take (bytes over
+     HBM rate or ops over peak rate); the split's NSPLIT and each of its
+     two kernels' device time (torch.profiler);
   5. daxpy: the kernel against ``daxpy_plain``, bit-exact, on the shapes and
      dtypes of tests/test_kernels.py and every length 1..5000; the kernel
      ops' main path (``kernels.ops.daxpy``, one offloaded job per size) with
@@ -46,7 +50,17 @@ printing a result:
      profile of warm decode steps at the streaming shape (S = 1040, four
      slot lengths); then the same trace at 4 layers in f32 on the
      simulated fabric, fused, unfused and fused-pipelined: equal token
-     streams;
+     streams; then the MoE, SSM and hybrid families at full width through
+     the same ``serve_workload`` call (qwen3-moe-30b-a3b on the 48
+     requests, mamba2-370m and zamba2-1.2b on the first 16; every earlier
+     phase's weights freed first, memory printed before and after): every
+     request admitted or rejected, every admitted one completed, the
+     kernel launched once per attention layer per decode (none for
+     mamba2); a profile of one qwen3-moe decode step at S = 1040 beside
+     the bound of the weights it reads; fused against unfused on the trace
+     in f32 at full width, qwen3-moe at 2 layers and zamba2's first group
+     (6 layers): equal token streams (the pipelined loop's, on the MoE,
+     counted where they differ: ROADMAP C12);
   8. train: chatglm3-6b at full width, depth cut to 8 layers, through
      ``repro_torch.launch.train.run`` with the fused AdamW kernel under the
      step supervisor: 8 steps of 4 x 512 tokens; the kernel must launch
@@ -142,6 +156,16 @@ SCALAR_LOAD_CASES = [
 # repro_torch.launch.serve``), and the depth of its fused-vs-unfused check.
 STREAM_REQUESTS, STREAM_RATE, STREAM_SEED = 48, 2e6, 0
 STREAM_CHECK_LAYERS = 4
+# The MoE, SSM and hybrid families at full width on the streaming path:
+# qwen3-moe-30b-a3b on the CLI's trace, mamba2-370m and zamba2-1.2b on its
+# first FAMILY_REQUESTS requests; their fused-vs-unfused checks in f32 at
+# the depths below (qwen3-moe: 2 layers; zamba2: its first group).
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("qwen3-moe-30b-a3b", "mamba2-370m",
+                                   "zamba2-1.2b")
+FAMILY_REQUESTS = 16
+FAMILY_CHECK_LAYERS = {MOE_ARCH: 2, HYBRID_ARCH: 6}
+# The archs whose engine steps are queued under the sync debug mode.
+NO_SYNC_ARCHS = (ARCH, MOE_ARCH, HYBRID_ARCH)
 # daxpy: the shapes and dtypes of tests/test_kernels.py, and the sizes the
 # offload sweep times (f32).
 DAXPY_SHAPES = [(5,), (128,), (1000,), (8, 128), (3, 7, 11), (256, 256),
@@ -332,6 +356,30 @@ def time_split(fn, dev, calls=100) -> dict:
     return res
 
 
+def time_case(case, dev) -> dict:
+    """Kernel and plain version at one case's shape (lens as the case
+    gives them), beside the bound, and the split the kernel takes."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+
+    _, _, b, s, h, kh, d, dt, *_ = case
+    args, lens = make_inputs(case, 0, dev)
+    a_kernel, a_plain = clone(args), clone(args)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit, chunk = DA.split_plan(b, kh, s, sms)
+    bound_ms, bound_by, nbytes, ops = bound(case, args)
+    return {"case": case[0],
+            "shape": f"B={b} S={s} H={h} K={kh} D={d} "
+                     f"W={args[6].shape[-1]} {dt}",
+            "lens": lens, "nsplit": nsplit, "chunk": chunk,
+            "kernel_ms": time_ms(
+                lambda: DA.fused_decode_attention(*a_kernel), dev),
+            "plain_ms": time_ms(
+                lambda: DA.decode_attention_plain(*a_plain), dev),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
+
+
 def bound(case, args) -> tuple[float, str, float, float]:
     """Least time for the work: max(bytes / HBM rate, ops / peak rate)."""
     _, _, b, s, h, kh, d, dt, _, quant, _, _ = case
@@ -399,37 +447,59 @@ def phase_serve(dev) -> dict:
     return res
 
 
-def stream_spec():
+def stream_spec(requests: int = STREAM_REQUESTS):
     from repro_torch.serve import WorkloadSpec
-    return WorkloadSpec(num_requests=STREAM_REQUESTS, rate_rps=STREAM_RATE,
+    return WorkloadSpec(num_requests=requests, rate_rps=STREAM_RATE,
                         seed=STREAM_SEED)
 
 
-def stream_max_len() -> int:
+def stream_max_len(arch: str = ARCH, requests: int = STREAM_REQUESTS) -> int:
     """The cache length ``serve_workload`` sizes for the streaming trace."""
     from repro_torch.configs import get_config
-    spec = replace(stream_spec(), vocab_size=get_config(ARCH).vocab_size)
+    spec = replace(stream_spec(requests),
+                   vocab_size=get_config(arch).vocab_size)
     return max(r.prompt_len + r.gen_len for r in spec.build())
 
 
-def stream_cases(sms: int) -> list:
-    """The decode kernel at the streaming shape: B=4, S = the trace's
-    max_len, with the new token at 0, S - 1 and on chunk edges."""
+def attention_layers(cfg) -> int:
+    """Attention blocks in a stack: the decode kernel's calls per step."""
+    per_group = sum(k != "mamba" for k in cfg.pattern)
+    return per_group * cfg.full_groups + sum(k != "mamba" for k in cfg.tail)
+
+
+def stream_cases(sms: int, arch: str = ARCH) -> list:
+    """The decode kernel at ``arch``'s streaming shape: B=4, S = the CLI
+    trace's max_len, with the new token at 0, S - 1 and on chunk edges of
+    the scores kernel's split (the middle of the row where the split has
+    one chunk), in bf16 and int8 caches; and lens drawn in [128, S)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as DA
-    s = stream_max_len()
-    _, chunk = DA.split_plan(4, 2, s, sms)
-    shape = ("chatglm3-6b", 4, s, 32, 2, 128, "bf16")
-    return [("stream-edges", *shape, [0, s - 1, chunk - 1, chunk],
+    cfg = get_config(arch)
+    s = stream_max_len(arch)
+    kh = cfg.num_kv_heads
+    _, chunk = DA.split_plan(4, kh, s, sms)
+    edge = chunk if chunk < s else s // 2
+    edge2 = 2 * edge if 2 * edge < s else edge + 1
+    shape = (arch, 4, s, cfg.num_heads, kh, cfg.qk_head_dim, "bf16")
+    tag = "" if arch == ARCH else f"{arch}-"
+    return [(f"{tag}stream-edges", *shape, [0, s - 1, edge - 1, edge],
              False, False, 0),
-            ("stream-edges-q8", *shape, [2 * chunk - 1, 0, s - 1, 2 * chunk],
+            (f"{tag}stream-edges-q8", *shape, [edge2 - 1, 0, s - 1, edge2],
              True, False, 0),
-            ("stream-drawn", *shape, None, False, False, 0)]
+            (f"{tag}stream-drawn", *shape, None, False, False, 0)]
 
 
-def phase_stream(dev, pipeline: bool = False) -> dict:
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
+                 requests: int = STREAM_REQUESTS) -> dict:
     """The streaming path at full width: ``serve_workload`` with the CLI's
-    defaults on the wall-clock fabric, fused decode on; ``pipeline`` runs
-    the pipelined loop instead of the continuous one."""
+    defaults (its first ``requests`` requests) on the wall-clock fabric,
+    fused decode on; ``pipeline`` runs the pipelined loop instead of the
+    continuous one.  The decode kernel must launch once per attention
+    layer for every decode job and warm-up decode."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import (CreditCounterSync, FaultDetected,
@@ -438,7 +508,8 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
     from repro_torch.obs import Tracer
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    n_attn = attention_layers(cfg)
     reads = []
     wait = CreditCounterSync.wait
 
@@ -453,12 +524,13 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
 
     tracer = Tracer()     # its wall-domain spans give the decode seconds
     torch.cuda.reset_peak_memory_stats(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
     CreditCounterSync.wait = recording_wait
     try:
         DA.LAUNCHES = 0
         t0 = time.perf_counter()
-        out = serve_workload(stream_spec(), config=ServeConfig(
-            arch=ARCH, reduced=False, fused_decode=True, fabric="wallclock",
+        out = serve_workload(stream_spec(requests), config=ServeConfig(
+            arch=arch, reduced=False, fused_decode=True, fabric="wallclock",
             pipeline=pipeline, device=dev, tracer=tracer))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -468,10 +540,10 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
     m, reqs = out["metrics"], out["requests"]
     threshold = credit_threshold()
     n_lengths = len({r.prompt_len for r in reqs})   # one warm-up each
-    expect = cfg.num_layers * (m.decode_jobs + n_lengths)
+    expect = n_attn * (m.decode_jobs + n_lengths)
     if launches != expect:
         raise AssertionError(f"kernel launched {launches} times while "
-                             f"streaming, expected {cfg.num_layers} x "
+                             f"streaming, expected {n_attn} x "
                              f"({m.decode_jobs} + {n_lengths})")
     n_reads = m.prefill_jobs + m.decode_jobs + 2 * n_lengths
     if len(reads) != n_reads or any(r != threshold for r in reads):
@@ -480,10 +552,11 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
                              f"{[r for r in reads if r != threshold]}")
     admitted = [r for r in reqs if r.state is not RequestState.REJECTED]
     if (len(admitted) != m.admitted or m.completed != m.admitted
+            or m.admitted + m.rejected != requests
             or m.dropped or out["orphans"]
             or any(r.state is not RequestState.DONE for r in admitted)):
-        raise AssertionError(f"admitted {m.admitted}, completed "
-                             f"{m.completed}, dropped {m.dropped}")
+        raise AssertionError(f"admitted {m.admitted}, rejected {m.rejected},"
+                             f" completed {m.completed}, dropped {m.dropped}")
     for r in admitted:
         toks = r.generated
         if len(toks) != r.gen_len or toks.min() < 0 or \
@@ -498,10 +571,13 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
     summ = m.summary()
     lat = summ["latency_us"]
     loop = "pipelined" if pipeline else "continuous"
-    res = {"arch": ARCH, "layers": cfg.num_layers, "dtype": cfg.dtype,
+    del out
+    torch.cuda.synchronize()
+    res = {"arch": arch, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "params": cfg.param_count(), "attention_layers": n_attn,
            "loop": loop, "pipelined_prefills": m.pipelined_prefills,
-           "requests": STREAM_REQUESTS, "rate_rps": STREAM_RATE,
-           "seed": STREAM_SEED, "max_len": stream_max_len(),
+           "requests": requests, "rate_rps": STREAM_RATE,
+           "seed": STREAM_SEED, "max_len": stream_max_len(arch, requests),
            "prompt_lengths": n_lengths, "admitted": m.admitted,
            "rejected": m.rejected, "completed": m.completed,
            "prefill_jobs": m.prefill_jobs, "decode_jobs": m.decode_jobs,
@@ -516,22 +592,28 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
            "slot_occupancy_mean": summ["slot_occupancy"]["mean"],
            "mid_wave_admissions": m.mid_wave_admissions,
            "calibration": snap.as_dict(),
+           "memory_allocated_before": mem_before,
+           "memory_allocated_after": torch.cuda.memory_allocated(dev),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "serve_wall_s": wall}
     card = card_line()
-    log(f"[stream] {card}: {ARCH} full width ({cfg.num_layers} layers, "
-        f"{cfg.dtype}), {STREAM_REQUESTS} requests at {STREAM_RATE:g} req/s "
-        f"(seed {STREAM_SEED}), wall-clock fabric, {loop} loop, fused "
-        f"decode, max_len {res['max_len']}")
+    log(f"[stream] {card}: {arch} full width ({cfg.num_layers} layers, "
+        f"{cfg.param_count()} params, {cfg.dtype}), {requests} requests at "
+        f"{STREAM_RATE:g} req/s (seed {STREAM_SEED}), wall-clock fabric, "
+        f"{loop} loop, fused decode, max_len {res['max_len']}; "
+        f"memory_allocated before {gib(mem_before)}")
+    kernel = (f"kernel launches {launches} == {n_attn} x ({m.decode_jobs} + "
+              f"{n_lengths} warm-up)" if n_attn else
+              f"no attention layer, so no decode-kernel launch ({launches})")
     log(f"[stream] {card}: admitted {m.admitted}, rejected {m.rejected}, "
         f"completed {m.completed}; prefill jobs {m.prefill_jobs}, decode "
-        f"jobs {m.decode_jobs}; kernel launches {launches} == "
-        f"{cfg.num_layers} x ({m.decode_jobs} + {n_lengths} warm-up); "
+        f"jobs {m.decode_jobs}; {kernel}; "
         f"credit reads {len(reads)}/{n_reads} at threshold; "
         f"{m.pipelined_prefills} pipelined prefills")
     log(f"[stream] {card}: decode {decode_tokens} tokens in {decode_s:.4f} "
         f"s of decode-step wall = {res['decode_tok_s']:.1f} tok/s "
-        f"({res['decode_rows_tok_s']:.1f} counting all 4 rows); step p50 "
+        f"({res['decode_rows_tok_s']:.1f} counting all 4 rows); prefill "
+        f"jobs {prefill_s:.4f} s; step p50 "
         f"{res['step_p50_ms']:.2f} ms; request latency p50 "
         f"{res['latency_p50_s']:.4f} s, p99 {res['latency_p99_s']:.4f} s; "
         f"slot occupancy {res['slot_occupancy_mean']:.3f}")
@@ -540,61 +622,200 @@ def phase_stream(dev, pipeline: bool = False) -> dict:
         f"samples]: alpha {snap.alpha:.1f} beta {snap.beta:.4f} gamma "
         f"{snap.gamma:.4f} (cycles = ns), window MAPE "
         f"{'n/a' if mape is None else f'{mape:.2f}%'}; max_memory_allocated "
-        f"{res['max_memory_allocated'] / 2**30:.2f} GiB; wall {wall:.1f} s "
+        f"{gib(res['max_memory_allocated'])}, memory_allocated after "
+        f"{gib(res['memory_allocated_after'])}; wall {wall:.1f} s "
         f"(weights drawn on the card and the warm-up included)")
     return res
 
 
-def phase_stream_fused_vs_unfused(dev) -> dict:
-    """The streaming trace at full width, depth cut, f32, on the simulated
-    fabric (a fixed schedule): fused and unfused decoding, and the fused
-    pipelined loop, must give the same token stream for every request."""
+def _tap_decodes():
+    """Record, per decode job, each row's next token and the smallest
+    margin between its k-th and (k+1)-th router logit over the step's MoE
+    layers (for the report of a token that differs).  Returns the record
+    and a function that undoes the wrapping."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.serve.batcher import ServingEngine
+
+    rec = {"steps": [], "margins": []}
+    route, decode = L.moe_route, ServingEngine.decode_async
+
+    def tapped_route(xg, w_router, cfg, cap):
+        if xg.shape[1] == 4:            # a decode step's four rows
+            top = torch.sort(xg @ w_router.to(xg.dtype), dim=-1,
+                             descending=True, stable=True).values
+            k = cfg.num_experts_per_tok
+            rec["margins"].append((top[..., k - 1] - top[..., k]).amin(0))
+        return route(xg, w_router, cfg, cap)
+
+    def tapped_decode(self, tok, caches, lens):
+        first = len(rec["margins"])
+        pending = decode(self, tok, caches, lens)
+        rec["steps"].append((pending.out["next_token"], first,
+                             len(rec["margins"])))
+        return pending
+
+    L.moe_route, ServingEngine.decode_async = tapped_route, tapped_decode
+
+    def undo():
+        L.moe_route, ServingEngine.decode_async = route, decode
+    return rec, undo
+
+
+def _first_difference(a: dict, b: dict) -> str:
+    """The first decode job whose next tokens differ between two tapped
+    runs: its step, row and that row's smallest router margin in each."""
+    import torch
+    for i, ((ta, a0, a1), (tb, b0, b1)) in enumerate(zip(a["steps"],
+                                                         b["steps"])):
+        rows = (ta != tb).nonzero().flatten().tolist()
+        if rows:
+            r = rows[0]
+
+            def margin(rec, lo, hi):
+                if hi == lo:
+                    return "n/a (no MoE layer)"
+                return f"{float(torch.stack(rec['margins'][lo:hi])[:, r].min()):.3e}"
+            return (f"decode step {i}, row {r}: tokens {int(ta[r])} vs "
+                    f"{int(tb[r])}; smallest top-k router margin "
+                    f"{margin(a, a0, a1)} vs {margin(b, b0, b1)}")
+    return "no decode step differs (the prefill's tokens do)"
+
+
+def check_no_sync(dev) -> dict:
+    """Queueing a step syncs nothing: for each arch of NO_SYNC_ARCHS
+    (reduced, f32, fused decode), a warm engine's
+    ``prefill_into_slots_async`` and two ``decode_async`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    stream or device sync and on any blocking copy; then the steps are
+    awaited and their credits read."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.batcher import ServingEngine
+
+    # The mode catches a blocking copy (else the check below proves nothing).
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.as_tensor(np.zeros(4, np.int32), device=dev)
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not caught:
+        raise AssertionError("set_sync_debug_mode('error') let a blocking "
+                             "host->device copy through")
+    res = {}
+    for arch in NO_SYNC_ARCHS:
+        eng = ServingEngine(arch, reduced=True, max_batch=4, max_len=48,
+                            fused_decode=True, device=dev)
+        tokens = np.random.default_rng(0).integers(
+            0, eng.cfg.vocab_size, (4, 16), dtype=np.int32)
+        mask = np.array([True, False, True, True])
+        lens = np.array([16, 3, 16, 16], np.int32)
+        tok, caches, _ = eng.prefill_into_slots(tokens, eng.init_caches(),
+                                                mask)
+        tok, caches, _ = eng.decode(tok[:, None], caches, lens)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = [eng.prefill_into_slots_async(tokens, caches, mask)]
+            for i in (1, 2):
+                pend.append(eng.decode_async(tok[:, None],
+                                             pend[-1].out["caches"],
+                                             lens + i))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for p in pend:
+            eng.wait_step(p)      # raises if a credit count falls short
+        res[arch] = {"steps_queued": len(pend)}
+    log(f"[sync] prefill_into_slots_async and decode_async queued under "
+        f"set_sync_debug_mode('error') with no sync, on reduced "
+        f"{', '.join(NO_SYNC_ARCHS)} (the mode raised on a deliberate "
+        f"blocking copy first)")
+    return res
+
+
+def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
+                                  layers: int = STREAM_CHECK_LAYERS) -> dict:
+    """The streaming trace at full width, depth cut to ``layers``, f32, on
+    the simulated fabric (a fixed schedule): fused and unfused decoding,
+    and the fused pipelined loop, must give the same token stream for
+    every request.  If a token differs, the report names the decode step,
+    the row and the row's smallest top-k router margin.
+
+    One exception, for an MoE: the pipelined loop batches other requests
+    together, and with one routing group a batch's rows share the
+    experts' capacity (ROADMAP C12, as in the reference), so its streams
+    may differ from the continuous loop's; they are counted, not held
+    equal."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.models import init_params
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
-    cfg = replace(get_config(ARCH), num_layers=STREAM_CHECK_LAYERS,
-                  dtype="float32")
+    cfg = replace(get_config(arch), num_layers=layers, dtype="float32")
+    n_attn = attention_layers(cfg)
     params = init_params(cfg, seed=0, device=dev)   # serving leaves it as is
     runs = {"fused": (True, False), "unfused": (False, False),
             "fused-pipelined": (True, True)}
-    streams, plans, launches = {}, {}, {}
+    streams, plans, launches, taps = {}, {}, {}, {}
     for name, (fused, pipeline) in runs.items():
         DA.LAUNCHES = 0
-        out = serve_workload(stream_spec(), config=ServeConfig(
-            arch=cfg, reduced=False, fused_decode=fused, fabric="simulated",
-            pipeline=pipeline, device=dev, params=params))
+        taps[name], undo = _tap_decodes()
+        try:
+            out = serve_workload(stream_spec(), config=ServeConfig(
+                arch=cfg, reduced=False, fused_decode=fused,
+                fabric="simulated", pipeline=pipeline, device=dev,
+                params=params))
+        finally:
+            undo()
         launches[name] = DA.LAUNCHES
         streams[name] = {r.rid: r.generated.tolist() for r in out["requests"]
                          if r.state is RequestState.DONE}
         plans[name] = [(p.kind, p.n_elems, p.m) for p in out["plans"]]
     if plans["fused"] != plans["unfused"] or not streams["fused"]:
-        raise AssertionError("the simulated schedule differs between runs")
+        raise AssertionError(f"{arch}: the simulated schedule differs "
+                             "between runs")
+    coupled = {}      # the pipelined run's differing requests (an MoE)
     for name in ("unfused", "fused-pipelined"):
         if streams[name].keys() != streams["fused"].keys():
-            raise AssertionError(f"{name}: other requests completed")
+            raise AssertionError(f"{arch} {name}: other requests completed")
         bad = [rid for rid in streams["fused"]
                if streams[name][rid] != streams["fused"][rid]]
-        if bad:
-            raise AssertionError(f"fused and {name} token streams differ for "
-                                 f"requests {bad}")
+        if bad and name == "fused-pipelined" and cfg.num_experts:
+            coupled = {"requests": bad}
+            log(f"[stream-check] {arch}: the pipelined loop's streams differ "
+                f"from the continuous loop's for {len(bad)} of "
+                f"{len(streams[name])} requests: it batches other rows "
+                f"together, and rows share the experts' capacity (ROADMAP "
+                f"C12)")
+        elif bad:
+            raise AssertionError(
+                f"{arch}: fused and {name} token streams differ for requests "
+                f"{bad}; {_first_difference(taps['fused'], taps[name])}")
     # Every decode step runs on the engine, offloaded or kept on the host.
     for name in runs:
         steps = sum(p[0] == "decode" for p in plans[name])
-        want = STREAM_CHECK_LAYERS * steps if runs[name][0] else 0
+        want = n_attn * steps if runs[name][0] else 0
         if launches[name] != want:
-            raise AssertionError(f"{name}: {launches[name]} kernel launches, "
-                                 f"expected {want}")
+            raise AssertionError(f"{arch} {name}: {launches[name]} kernel "
+                                 f"launches, expected {want}")
     n_tok = sum(len(v) for v in streams["fused"].values())
-    log(f"[stream-check] f32, full width, depth cut to "
-        f"{STREAM_CHECK_LAYERS} layers, simulated fabric: fused, unfused "
-        f"and fused-pipelined token streams equal for "
+    margins = taps["fused"]["margins"]
+    smallest = (min(float(m.min()) for m in margins) if margins else None)
+    same = "fused and unfused" if coupled else \
+        "fused, unfused and fused-pipelined"
+    log(f"[stream-check] {arch}, f32, full width, depth cut to {layers} "
+        f"layers, simulated fabric: {same} token streams equal for "
         f"{len(streams['fused'])} requests ({n_tok} tokens; kernel launches "
-        f"{launches})")
-    return {"layers": STREAM_CHECK_LAYERS, "dtype": "float32",
+        f"{launches}"
+        + ("" if smallest is None else
+           f"; smallest decode-row top-k router margin {smallest:.3e}") + ")")
+    return {"arch": arch, "layers": layers, "dtype": "float32",
             "requests": len(streams["fused"]), "tokens": n_tok,
-            "launches": launches}
+            "launches": launches, "smallest_router_margin": smallest,
+            "pipelined_differs_c12": coupled}
 
 
 def _kind(name: str) -> str:
@@ -606,10 +827,31 @@ def _kind(name: str) -> str:
     return "other"
 
 
+def weight_bound(params, cfg) -> dict:
+    """Bytes of the weights one decode step reads, each once: every leaf
+    but the embedding table (of which it gathers B rows; a tied table is
+    the LM head and is read whole), over the HBM rate; for an MoE, the
+    expert leaves apart (the dense capacity dispatch runs every expert)."""
+    from torch.utils import _pytree as pytree
+    total = sum(t.numel() * t.element_size()
+                for t in pytree.tree_leaves(params))
+    if not cfg.tie_embeddings:
+        e = params["embed"]
+        total -= e.numel() * e.element_size()
+    experts = sum(t.numel() * t.element_size()
+                  for g in params["groups"] if "moe" in g
+                  for name, t in g["moe"].items() if name != "w_router")
+    return {"weight_bytes": total,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3,
+            "expert_bytes": experts,
+            "expert_bound_ms": experts / HBM_BYTES_PER_S * 1e3}
+
+
 def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
-                  lens=None, tag="profile") -> dict:
+                  lens=None, tag="profile", arch=ARCH) -> dict:
     """Where a full-width decode step's time goes: host wall per step vs
-    device time by kernel kind (torch.profiler over a few warm steps).
+    device time by kernel kind (torch.profiler over a few warm steps),
+    beside the least time the step's weight reads take.
 
     ``lens`` (one per slot) decodes each slot at its own length, as the
     streaming path does; by default every slot decodes at ``prompt_len``
@@ -620,8 +862,9 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
 
     from repro_torch.serve.batcher import ServingEngine
 
-    eng = ServingEngine(ARCH, reduced=False, max_batch=4, max_len=max_len,
+    eng = ServingEngine(arch, reduced=False, max_batch=4, max_len=max_len,
                         fused_decode=True, device=dev)
+    wb = weight_bound(eng.params, eng.cfg)
     prompt = np.random.default_rng(1).integers(
         0, eng.cfg.vocab_size, (4, prompt_len), dtype=np.int32)
     tok, caches, _ = eng.prefill(prompt)
@@ -656,9 +899,10 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
     prof_wall_ms = sum(prof_walls) / steps * 1e3
     busy_ms = sum(by_kind.values())
     first = pos - warm - steps
-    res = {"shape": f"B=4, S={max_len} slots, lens {first.tolist()} + "
+    res = {"arch": arch,
+           "shape": f"B=4, S={max_len} slots, lens {first.tolist()} + "
                     f"{warm}..{warm + steps - 1}, fused decode",
-           "warm_steps": warm, "profiled_steps": steps,
+           "warm_steps": warm, "profiled_steps": steps, **wb,
            "step_wall_ms_median": wall_ms,
            "profiled_step_wall_ms": prof_wall_ms,
            "device_ms_per_step": by_kind,
@@ -668,7 +912,7 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
            "top_kernels_ms_calls_name": top[:10]}
     if busy_ms == 0:
         log(f"[{tag}] torch.profiler saw no device time")
-    log(f"[{tag}] {res['shape']}")
+    log(f"[{tag}] {arch}: {res['shape']}")
     log(f"[{tag}] decode step: host-measured {wall_ms:.3f} ms (median of "
         f"{warm}, unprofiled), {prof_wall_ms:.3f} ms (mean of the {steps} "
         f"profiled); device busy {busy_ms:.3f} ms = attention "
@@ -677,8 +921,13 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
         f"({n_attn / steps:.0f} attention kernel launches per step, two "
         f"per call); idle share "
         f"{res['idle_share']}")
+    log(f"[{tag}] bound: {wb['weight_bytes']} B of weights read once per "
+        f"step / 3.35 TB/s = {wb['bound_ms']:.3f} ms"
+        + (f" (the experts' {wb['expert_bytes']} B alone: "
+           f"{wb['expert_bound_ms']:.3f} ms)" if wb["expert_bytes"] else ""))
     for ms, calls, name in top[:10]:
         log(f"[{tag}]   {ms:8.3f} ms/step  {calls:4d} calls  {name}")
+    del eng, caches
     return res
 
 
@@ -1251,6 +1500,15 @@ def main() -> int:
     log(f"[check] streaming shape S={s_cases[0][3]}: NSPLIT {s_nsplit}, "
         f"chunks of {s_chunk} slots")
     results["checks"] += [check_case(c, 0, dev) for c in s_cases]
+    # ... at qwen3-moe's (G=8) and zamba2's shared-attention (G=1, D=64)
+    # decode shapes.
+    family_cases = {a: stream_cases(sms, a) for a in (MOE_ARCH, HYBRID_ARCH)}
+    for cases in family_cases.values():
+        results["checks"] += [check_case(c, 0, dev) for c in cases]
+
+    # The engine queues its steps without a host sync.
+    results["no_sync"] = check_no_sync(dev)
+    free()
 
     # 4. Timing at the full decode shape.
     args, lens = make_inputs(FULL_CASE, 0, dev)
@@ -1277,24 +1535,18 @@ def main() -> int:
         f"time per call (torch.profiler, mean of {split['calls']} calls), "
         f"whole call {kernel_ms:.4f} ms (CUDA events)")
     del args, a_kernel, a_plain
-    # ... and at the streaming shape (lens drawn in [128, S)).
-    s_case = s_cases[-1]
-    args, s_lens = make_inputs(s_case, 0, dev)
-    a_kernel, a_plain = clone(args), clone(args)
-    s_bound = bound(s_case, args)
-    results["stream_timing"] = {
-        "shape": f"B=4 S={s_case[3]} H=32 K=2 D=128 W=32 bf16",
-        "lens": s_lens, "nsplit": s_nsplit, "chunk": s_chunk,
-        "kernel_ms": time_ms(lambda: DA.fused_decode_attention(*a_kernel),
-                             dev),
-        "plain_ms": time_ms(lambda: DA.decode_attention_plain(*a_plain), dev),
-        "bound_ms": s_bound[0], "bound_by": s_bound[1], "bytes": s_bound[2],
-        "ops": s_bound[3]}
+    # ... and at the streaming shapes (lens drawn in [128, S)): chatglm3's,
+    # qwen3-moe's and zamba2's shared attention's.
+    for key, cases in (("stream_timing", s_cases),
+                       *((f"stream_timing_{a}", c)
+                         for a, c in family_cases.items())):
+        results[key] = st = time_case(cases[-1], dev)
+        log(f"[time] fused_decode_attention at {st['shape']} "
+            f"({cases[-1][1]}), lens {st['lens']}: kernel "
+            f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.6f} ms ({st['bound_by']}: "
+            f"{st['bytes']} B); NSPLIT {st['nsplit']}")
     st = results["stream_timing"]
-    log(f"[time] fused_decode_attention at {st['shape']}, lens {s_lens}: "
-        f"kernel {st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-        f"bound {st['bound_ms']:.6f} ms ({st['bound_by']})")
-    del args, a_kernel, a_plain
 
     # 5. daxpy: check, the kernel ops' main path, timing.
     results["daxpy_check"] = check_daxpy(dev)
@@ -1329,6 +1581,28 @@ def main() -> int:
     results["stream_check"] = phase_stream_fused_vs_unfused(dev)
     free()
 
+    # 7b. The MoE, SSM and hybrid families at full width on the streaming
+    # path, each with its launches counted from 0 (every earlier phase's
+    # weights and caches freed first); a profile of one qwen3-moe decode
+    # step at the streaming shape; fused against unfused at reduced depth.
+    results["moe_stream"] = phase_stream(dev, arch=MOE_ARCH)
+    free()
+    m_len = results["moe_stream"]["max_len"]
+    results["moe_profile"] = phase_profile(
+        dev, max_len=m_len, prompt_len=256, lens=[256, 511, 767, m_len - 17],
+        tag="moe-profile", arch=MOE_ARCH)
+    free()
+    results["ssm_stream"] = phase_stream(dev, arch=SSM_ARCH,
+                                         requests=FAMILY_REQUESTS)
+    free()
+    results["hybrid_stream"] = phase_stream(dev, arch=HYBRID_ARCH,
+                                            requests=FAMILY_REQUESTS)
+    free()
+    results["family_checks"] = [
+        phase_stream_fused_vs_unfused(dev, arch, layers)
+        for arch, layers in FAMILY_CHECK_LAYERS.items()]
+    free()
+
     # 8. Training at full width, depth cut: its main path, launches from 0.
     results["train"] = phase_train(dev)
     free()
@@ -1354,7 +1628,17 @@ def main() -> int:
          "stream_launches": results["stream"]["launches"],
          "stream_shape_ms": st["kernel_ms"],
          "stream_shape_plain_ms": st["plain_ms"],
-         "stream_shape_bound_ms": st["bound_ms"]},
+         "stream_shape_bound_ms": st["bound_ms"],
+         **{f"{tag}_{key}": val
+            for tag, arch in (("moe", MOE_ARCH), ("hybrid", HYBRID_ARCH))
+            for key, val in (
+                ("stream_launches", results[f"{tag}_stream"]["launches"]),
+                ("shape_ms",
+                 results[f"stream_timing_{arch}"]["kernel_ms"]),
+                ("shape_plain_ms",
+                 results[f"stream_timing_{arch}"]["plain_ms"]),
+                ("shape_bound_ms",
+                 results[f"stream_timing_{arch}"]["bound_ms"]))}},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

@@ -242,36 +242,6 @@ def fit_linear_dispatch(
                                beta=float(coef[2]), gamma=float(coef[3]))
 
 
-def fit_from_simulator(
-    ms: Sequence[int] | None = None,
-    ns: Sequence[int] | None = None,
-    *,
-    multicast: bool = True,
-    hw=None,
-    kernel=None,
-) -> OffloadModel | LinearDispatchModel:
-    """Convenience: fit the appropriate model from the Manticore simulator.
-
-    ``hw``/``kernel`` configure the simulated hardware (default: the paper's
-    reference parameters and DAXPY).  A fleet lane fits its fabric's own
-    coefficients this way — ``hw=scaled_hw(C)`` over ``ms=extent_grid(C)``
-    gives the per-fabric Eq.-1 prior the router scores with (DESIGN.md §8).
-    """
-    from . import simulator as sim
-
-    hw = hw if hw is not None else sim.HWParams()
-    kernel = kernel if kernel is not None else sim.DAXPY
-    ms = list(ms if ms is not None else sim.PAPER_M_GRID)
-    ns = list(ns if ns is not None else sim.PAPER_N_GRID_MODEL)
-    samples = [
-        (m, n, float(sim.offload_runtime(m, n, multicast=multicast, hw=hw,
-                                         kernel=kernel)))
-        for m in ms
-        for n in ns
-    ]
-    return fit(samples) if multicast else fit_linear_dispatch(samples)
-
-
 def fit_pipelined_from_engine(
     ms: Sequence[int] | None = None,
     ns: Sequence[int] | None = None,

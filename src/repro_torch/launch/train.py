@@ -7,6 +7,8 @@ fault-tolerant supervisor loop.
   PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
       --reduced --device cpu --fused-adamw --steps 20 --batch 4 --seq 32
 
+``--arch`` defaults to the reference CLI's ``mamba2-370m``; every
+``ARCH_IDS`` entry trains.
 ``--fused-adamw`` sends the optimizer update through the fused AdamW
 kernel (CUDA on the card, its plain version on the CPU): the counterpart
 of the reference optimizer's ``use_pallas=True``, which the reference CLI
@@ -58,7 +60,7 @@ def build(arch: str, *, reduced: bool, opt: AdamWConfig | None = None,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="chatglm3-6b")
+    ap.add_argument("--arch", default="mamba2-370m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=8)

@@ -5,6 +5,12 @@ The caller passes the reference tree through ``np.asarray`` leaf by leaf
 (``jax.tree.map(np.asarray, tree)``); this module turns each numpy leaf
 into a tensor on ``device`` and keeps the nesting of dicts, tuples and
 lists, so the ``"groups"`` leaves keep their leading ``full_groups`` axis.
+Nothing here knows a block kind: MoE blocks (``"moe"``: an f32
+``w_router`` beside ``(E, d, f)`` experts), mamba blocks (``"mamba"``:
+f32 ``a_log``, ``dt_bias``, ``d_skip`` and ``w_norm`` beside the model-dtype
+projections), the hybrid's ``"shared"`` block and the empty dicts of its
+``shared_attn`` positions, and SSM caches (f32 ``ssm``, model-dtype
+``conv``) cross like any other tree, each leaf in its own dtype.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects.  They are detected by dtype name (no import

@@ -1,15 +1,18 @@
-"""Neural-net layers of the dense decoder stack, in PyTorch.
+"""Neural-net layers of every block kind, in PyTorch.
 
-The port of ``repro/models/layers.py`` for the attention and dense-MLP
-blocks.  Parameters are explicit dicts of tensors with the reference's
-layouts: activations are ``(B, S, d)``, heads ``(B, S, H, D)`` and KV
-caches ``(B, slots, K, D)``.  The reference's ``ShardCtx`` has no
-counterpart: the port runs on one device.
+The port of ``repro/models/layers.py``: attention, the dense MLP, the
+top-k MoE with capacity and the Mamba2 (SSD) block.  Parameters are
+explicit dicts of tensors with the reference's layouts: activations are
+``(B, S, d)``, heads ``(B, S, H, D)``, KV caches ``(B, slots, K, D)`` and
+SSM caches ``{"ssm": (B, H, P, N) f32, "conv": (B, W-1, C)}``.  The
+reference's ``ShardCtx`` has no counterpart: the port runs on one device.
 
 Where the reference asks for ``preferred_element_type=float32`` the port
 upcasts both operands to f32 before the product, which computes the same
-f32-accumulated result.  KV caches are updated in place — the port's
-counterpart of the reference's donated, functionally updated caches.
+f32-accumulated result; where a reference einsum mixes dtypes, the port
+casts to the type JAX promotes to.  Caches are updated in place — the
+port's counterpart of the reference's donated, functionally updated
+caches.
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from repro_torch.kernels.decode_attention import (NEG_INF,
 
 from .config import ModelConfig
 
-__all__ = ["rms_norm", "rope_cos_sin", "apply_rope", "NEG_INF",
-           "chunked_attention", "decode_attention", "quantize_kv",
-           "dequantize_kv", "attention_block", "mlp_block", "moe_block",
-           "mamba_block"]
+__all__ = ["rms_norm", "gated_rms_norm", "rope_cos_sin", "apply_rope",
+           "NEG_INF", "chunked_attention", "decode_attention", "quantize_kv",
+           "dequantize_kv", "attention_block", "mlp_block", "moe_capacity",
+           "moe_route", "moe_block", "ssd_chunked", "mamba_block"]
 
 
 # --------------------------------------------------------------------------- #
@@ -39,6 +42,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + w.float())).to(x.dtype)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Mamba2's output norm: RMSNorm(x * silu(z))."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), w, eps)
 
 
 # --------------------------------------------------------------------------- #
@@ -298,9 +307,228 @@ def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     return h @ p["w_out"]
 
 
-def moe_block(x, p, cfg):
-    raise NotImplementedError("moe_block is not ported yet (ROADMAP A9)")
+# --------------------------------------------------------------------------- #
+# Mixture of Experts (top-k, capacity-based, scatter dispatch)
+# --------------------------------------------------------------------------- #
+def moe_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
+    """Slots per expert in one routing group: ``max(ceil(Tg*k/E*cf), k)``."""
+    k = cfg.num_experts_per_tok
+    return max(int(math.ceil(tokens_per_group * k / cfg.num_experts
+                             * cfg.capacity_factor)), k)
 
 
-def mamba_block(x, p, cfg, *, cache=None):
-    raise NotImplementedError("mamba_block is not ported yet (ROADMAP A9)")
+def moe_route(xg: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
+              cap: int) -> tuple[torch.Tensor, ...]:
+    """Route each group's tokens: xg (G, Tg, d) -> (top_ids, gates, dst, keep).
+
+    ``top_ids`` (G, Tg, K) are the chosen experts, ``gates`` (G, Tg, K) f32
+    their softmax weights.  ``dst`` and ``keep`` (G, Tg*K) follow the
+    token-major (token, k) order: ``dst`` is the copy's row in the
+    (E*cap + 1)-row dispatch buffer, whose last row takes the copies that
+    overflow their expert's capacity (``keep`` False).
+    """
+    g, tg, _ = xg.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    # The router stays in the activation dtype, as in the reference.
+    logits = xg @ w_router.to(xg.dtype)                       # (G, Tg, E)
+    # lax.top_k puts equal logits in index order, and so does a stable
+    # descending sort; torch.topk promises no order among ties.
+    top_logits, top_ids = torch.sort(logits, dim=-1, descending=True,
+                                     stable=True)
+    top_logits, top_ids = top_logits[..., :k], top_ids[..., :k]
+    gates = torch.softmax(top_logits.float(), dim=-1)
+    ids = top_ids.reshape(g, tg * k)
+    # The one-hot in int32, as the reference's (F.one_hot gives int64).
+    oh = (ids[..., None] == torch.arange(e, device=xg.device)).to(torch.int32)
+    pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh     # rank in expert
+    posf = torch.gather(pos, 2, ids[..., None])[..., 0]
+    keep = posf < cap
+    dst = torch.where(keep, ids * cap + posf, e * cap)
+    return top_ids, gates, dst, keep
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE: route, scatter into per-expert capacity slots, the gated
+    expert FFN on every slot (``gecd,edf``/``gecf,efd``), gated combine.
+
+    Tokens split into ``cfg.moe_groups`` routing groups, each with its own
+    capacity; with one group, every row of the batch competes for the same
+    slots, as in the reference.
+    """
+    b, s, d = x.shape
+    e, k, g = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_groups
+    tokens = b * s
+    if tokens % g:
+        raise ValueError(f"tokens ({tokens}) must divide moe_groups ({g})")
+    tg = tokens // g
+    cap = moe_capacity(tg, cfg)
+    xg = x.reshape(g, tg, d)
+    _, gates, dst, keep = moe_route(xg, p["w_router"], cfg, cap)
+
+    # Dispatch.  Every row of the buffer but the overflow row receives at
+    # most one copy, added onto an exact 0, so the result does not depend
+    # on the order in which index_add's atomic adds land on the card; the
+    # overflow row, which may take many, is dropped.
+    rows = e * cap + 1
+    base = torch.arange(g, device=x.device)[:, None]
+    xrep = xg[:, :, None].expand(g, tg, k, d)                 # (G, Tg, K, d)
+    buf = x.new_zeros((g * rows, d)).index_add(
+        0, (dst + base * rows).reshape(-1), xrep.reshape(-1, d))
+    buf = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
+
+    act = _ACTS[cfg.act]
+    h = act(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", buf, p["w_in"])
+    y_e = torch.einsum("gecf,efd->gecd", h, p["w_out"])
+
+    # Combine: each copy reads its slot back (an overflowed copy reads the
+    # last real slot and is zeroed by ``keep``), weighted by its gate.
+    src = torch.clamp_max(dst, e * cap - 1) + base * (e * cap)
+    out = y_e.reshape(g * e * cap, d).index_select(0, src.reshape(-1))
+    out = out.reshape(g, tg * k, d)
+    out = out * keep[..., None].to(out.dtype)
+    out = out * gates.reshape(g, tg * k)[..., None].to(out.dtype)
+    return out.reshape(g, tg, k, d).sum(dim=2).reshape(b, s, d)
+
+
+# --------------------------------------------------------------------------- #
+# Mamba2 (state-space duality, chunked)
+# --------------------------------------------------------------------------- #
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x (..., Q) -> (..., Q, Q) lower-triangular segment sums (-inf above
+    the diagonal): the reference's difference of cumulative sums."""
+    q = x.shape[-1]
+    cum = torch.cumsum(x, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, bmat: torch.Tensor,
+                cmat: torch.Tensor, *, chunk: int,
+                init_state: torch.Tensor | None = None,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SSD "chunked dual" form (Mamba2): quadratic within chunks, a linear
+    recurrence over chunk states.
+
+    x (B, T, H, P) already times dt; dt_a (B, T, H) = dt * A (negative);
+    bmat/cmat (B, T, N); init_state (B, H, P, N).  Returns (y (B, T, H, P),
+    final_state (B, H, P, N)), both in x's dtype.  The decays and the C.B
+    product are f32; the state runs in x's dtype, as in the reference.
+    """
+    b, t, h, pdim = x.shape
+    n = bmat.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T ({t}) must divide chunk ({chunk})")
+    c = t // chunk
+    xr = x.reshape(b, c, chunk, h, pdim)
+    ar = dt_a.reshape(b, c, chunk, h).float()
+    br = bmat.reshape(b, c, chunk, n)
+    cr = cmat.reshape(b, c, chunk, n)
+
+    a_cum = torch.cumsum(ar, dim=2)                           # (B,C,Q,H)
+    # Intra-chunk (quadratic) term.
+    decay = torch.exp(_segsum(ar.transpose(2, 3)))            # (B,C,H,Q,Q)
+    cb = torch.einsum("bcqn,bckn->bcqk", cr.float(), br.float())
+    w = cb[:, :, None] * decay                                # (B,C,H,Q,Q)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", w.to(x.dtype), xr)
+
+    # Per-chunk input state.
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)     # (B,C,Q,H)
+    s_chunk = torch.einsum("bckn,bckh,bckhp->bchpn", br,
+                           decay_to_end.to(br.dtype), xr)
+
+    # Inter-chunk recurrence over chunk states; prev[i] is the state
+    # entering chunk i.
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])               # (B,C,H)
+    state = (init_state.to(x.dtype) if init_state is not None else
+             x.new_zeros((b, h, pdim, n)))
+    prev = []
+    for i in range(c):
+        prev.append(state)
+        state = s_chunk[:, i] + chunk_decay[:, i, :, None, None].to(
+            s_chunk.dtype) * state
+    prev_states = torch.stack(prev, dim=1)                    # (B,C,H,P,N)
+
+    in_decay = torch.exp(a_cum)                               # (B,C,Q,H)
+    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", cr,
+                           in_decay.to(cr.dtype), prev_states)
+    return (y_intra + y_inter).reshape(b, t, h, pdim), state
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: torch.Tensor | None,
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Depthwise causal conv of width W: x (B, T, C), w (W, C).
+
+    With ``state`` (B, W-1, C), one decode step (T == 1): returns y and the
+    new state, the window's last W-1 inputs.
+    """
+    width = w.shape[0]
+    if state is not None:
+        window = torch.cat([state, x], dim=1)                 # (B, W, C)
+        y = torch.einsum("bwc,wc->bc", window, w)[:, None]
+        return y, window[:, 1:]
+    t = x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    return sum(pad[:, i:i + t] * w[i] for i in range(width)), None
+
+
+def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+                cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+    """Mamba2 block; returns ``(y, cache)``.
+
+    ``cache`` is ``{"ssm": (B, H, P, N) f32, "conv": (B, W-1, C)}`` (plus
+    ``len``) and is written in place: a prefill (S > 1) stores the final
+    SSM state and the last W-1 conv inputs, a decode step (S == 1) runs
+    the one-token recurrence ``S <- exp(dt*A) S + (dt*x) (x) B; y = C.S``.
+    """
+    b, s, _ = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    h = cfg.ssm_num_heads
+    pdim = di // h
+    width = p["w_conv"].shape[0]
+
+    z = x @ p["w_z"]
+    xin = x @ p["w_x"]
+    bc = x @ p["w_bc"]
+    dt = x @ p["w_dt"]
+
+    conv_in = torch.cat([xin, bc], dim=-1)
+    decoding = cache is not None and s == 1
+    conv_out, new_conv = _causal_conv(conv_in, p["w_conv"],
+                                      cache["conv"] if decoding else None)
+    conv_out = F.silu(conv_out.float()).to(x.dtype)
+    xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
+
+    a = -torch.exp(p["a_log"].float())                        # (H,)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())        # (B, S, H)
+    xh = xin.reshape(b, s, h, pdim)
+    x_dt = xh * dt[..., None].to(x.dtype)
+    dt_a = dt * a                                             # (B, S, H)
+
+    if not decoding:
+        y, final_state = ssd_chunked(
+            x_dt, dt_a, bmat, cmat, chunk=min(cfg.ssm_chunk, s),
+            init_state=cache["ssm"] if cache is not None else None)
+        if cache is not None:   # prefill: persist the SSM state, conv tail
+            if s < width - 1:
+                raise ValueError(f"prefill of {s} tokens is shorter than "
+                                 f"the conv window's {width - 1}")
+            cache["ssm"].copy_(final_state)
+            cache["conv"].copy_(conv_in[:, s - (width - 1):])
+            cache = dict(cache, len=cache["len"] + s)
+    else:
+        s_prev = cache["ssm"]
+        da = torch.exp(dt_a[:, 0])                            # (B, H)
+        outer = torch.einsum("bhp,bn->bhpn", x_dt[:, 0], bmat[:, 0])
+        s_new = da[..., None, None].to(s_prev.dtype) * s_prev \
+            + outer.to(s_prev.dtype)
+        y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].to(s_new.dtype), s_new)
+        y = y.reshape(b, 1, h, pdim).to(x.dtype)
+        s_prev.copy_(s_new)
+        cache["conv"].copy_(new_conv)
+
+    y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
+    y = gated_rms_norm(y.reshape(b, s, di), z, p["w_norm"], cfg.norm_eps)
+    return y @ p["w_out"], cache

@@ -1,4 +1,4 @@
-"""Decoder-only LM over the dense block kinds, in PyTorch.
+"""Decoder-only LM over every block kind, in PyTorch.
 
 The port of ``repro/models/model.py``.  Parameters and caches are nested
 dicts/tuples of tensors with the reference's layout: the blocks of
@@ -6,7 +6,9 @@ dicts/tuples of tensors with the reference's layout: the blocks of
 ``"groups"`` and the ``cfg.tail`` blocks sit apart under ``"tail"``, so a
 reference pytree converts leaf by leaf (``models.convert``).  Where the
 reference scans over the stacked groups, the port loops over them in
-Python.
+Python.  Hybrid archs (Zamba2) invoke one ``params["shared"]`` attention
+block from each ``shared_attn`` position; its weights are stored once,
+and each invocation has its own KV cache.
 
 Entry points:
   init_params(cfg, seed=, device=)              -> param tree
@@ -34,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.device import resolve_device
 
 from .config import ModelConfig
-from .layers import attention_block, mamba_block, mlp_block, moe_block, rms_norm
+from .layers import (attention_block, mamba_block, mlp_block, moe_block,
+                     rms_norm)
 
 Params = dict[str, Any]
 
@@ -65,18 +68,24 @@ class _Init:
                  dt: torch.dtype, lead: tuple[int, ...] = ()):
         self.gen, self.device, self.dt, self.lead = gen, device, dt, lead
 
-    def normal(self, shape, scale: float) -> torch.Tensor:
-        out = torch.empty((*self.lead, *shape), dtype=self.dt,
-                          device=self.device)
+    def normal(self, shape, scale: float,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+        """N(0, 1) * scale in ``dtype`` (default: the model's)."""
+        dt = dtype or self.dt
+        out = torch.empty((*self.lead, *shape), dtype=dt, device=self.device)
         flat = out.reshape(-1, *shape) if self.lead else out[None]
         for i in range(flat.shape[0]):
             flat[i] = (torch.randn(shape, generator=self.gen,
-                                   device=self.device) * scale).to(self.dt)
+                                   device=self.device) * scale).to(dt)
         return out
 
+    def full(self, shape, value: float) -> torch.Tensor:
+        """An f32 leaf filled with ``value`` (norms, SSM constants)."""
+        return torch.full((*self.lead, *shape), value, dtype=torch.float32,
+                          device=self.device)
+
     def zeros(self, shape) -> torch.Tensor:
-        return torch.zeros((*self.lead, *shape), dtype=torch.float32,
-                           device=self.device)
+        return self.full(shape, 0.0)
 
 
 def _init_attn(ini: _Init, cfg: ModelConfig) -> dict:
@@ -98,13 +107,45 @@ def _init_mlp(ini: _Init, cfg: ModelConfig) -> dict:
     return p
 
 
+def _init_moe(ini: _Init, cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {"w_router": ini.normal((d, e), s_in, torch.float32),
+            "w_gate": ini.normal((e, d, f), s_in),
+            "w_in": ini.normal((e, d, f), s_in),
+            "w_out": ini.normal((e, f, d), s_out)}
+
+
+def _init_mamba(ini: _Init, cfg: ModelConfig) -> dict:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h = cfg.ssm_num_heads
+    s = 1.0 / math.sqrt(d)
+    return {"w_z": ini.normal((d, di), s),
+            "w_x": ini.normal((d, di), s),
+            "w_bc": ini.normal((d, 2 * n), s),
+            "w_dt": ini.normal((d, h), s),
+            "w_conv": ini.normal((cfg.conv_width, di + 2 * n),
+                                 1.0 / math.sqrt(cfg.conv_width)),
+            "a_log": ini.zeros((h,)),
+            "dt_bias": ini.full((h,), -2.0),   # softplus ~= 0.12
+            "d_skip": ini.full((h,), 1.0),
+            "w_norm": ini.zeros((di,)),
+            "w_out": ini.normal((di, d), 1.0 / math.sqrt(di))}
+
+
 def _init_block(ini: _Init, kind: str, cfg: ModelConfig) -> dict:
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(
-            f"{kind!r} blocks are not ported yet (ROADMAP A9)")
     d = cfg.d_model
-    return {"norm1": ini.zeros((d,)), "norm2": ini.zeros((d,)),
-            "attn": _init_attn(ini, cfg), "mlp": _init_mlp(ini, cfg)}
+    if kind == "mamba":
+        return {"norm1": ini.zeros((d,)), "mamba": _init_mamba(ini, cfg)}
+    if kind == "shared_attn":
+        return {}   # the weights live once, in params["shared"]
+    p = {"norm1": ini.zeros((d,)), "norm2": ini.zeros((d,)),
+         "attn": _init_attn(ini, cfg)}
+    if kind == "attn_moe":
+        p["moe"] = _init_moe(ini, cfg)
+    else:
+        p["mlp"] = _init_mlp(ini, cfg)
+    return p
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -125,8 +166,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         "final_norm": single.zeros((d,)),
     }
     if cfg.uses_shared_block:
-        raise NotImplementedError("shared blocks are not ported yet "
-                                  "(ROADMAP A9)")
+        params["shared"] = _init_block(single, "attn", cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = single.normal((d, vp), 1.0 / math.sqrt(d))
     return params
@@ -136,15 +176,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # Blocks
 # --------------------------------------------------------------------------- #
 def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
-                 fused=False):
-    """One decoder block; returns (h, cache)."""
+                 shared=None, fused=False):
+    """One decoder block; returns (h, cache).  A ``shared_attn`` block runs
+    the ``shared`` attention block's weights."""
     if kind == "shared_attn":
-        raise NotImplementedError("shared blocks are not ported yet "
-                                  "(ROADMAP A9)")
+        bp, kind = shared, "attn"
     window = cfg.sliding_window if kind == "local" else 0
     if kind == "mamba":
-        return mamba_block(rms_norm(h, bp["norm1"], cfg.norm_eps),
-                           bp["mamba"], cfg, cache=cache)
+        m_out, new_cache = mamba_block(rms_norm(h, bp["norm1"], cfg.norm_eps),
+                                       bp["mamba"], cfg, cache=cache)
+        return h + m_out, new_cache
     a_in = rms_norm(h, bp["norm1"], cfg.norm_eps)
     a_out, new_cache = attention_block(a_in, bp["attn"], cfg,
                                        positions=positions, window=window,
@@ -166,6 +207,8 @@ def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
     pass instead of keeping them (``torch.utils.checkpoint`` per group, the
     reference's ``jax.checkpoint`` with ``nothing_saveable``).
     """
+    shared = params.get("shared")
+
     def with_len(entry):
         return None if entry is None else dict(entry, len=cache_len)
 
@@ -175,7 +218,8 @@ def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
                      if caches is not None else None)
             hh, _ = _apply_block(hh, _index(params["groups"][i], g), kind,
                                  cfg, positions=positions,
-                                 cache=with_len(entry), fused=fused)
+                                 cache=with_len(entry), shared=shared,
+                                 fused=fused)
         return hh
 
     for g in range(cfg.full_groups):
@@ -187,7 +231,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
         entry = caches["tail"][i] if caches is not None else None
         h, _ = _apply_block(h, params["tail"][i], kind, cfg,
                             positions=positions, cache=with_len(entry),
-                            fused=fused)
+                            shared=shared, fused=fused)
     return h, caches
 
 
@@ -298,9 +342,15 @@ def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None):
 def _cache_entry(kind: str, cfg: ModelConfig, lead: tuple[int, ...],
                  batch: int, max_len: int, dt: torch.dtype,
                  device: torch.device) -> dict:
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(
-            f"{kind!r} caches are not ported yet (ROADMAP A9)")
+    if kind == "mamba":
+        # The SSM state accumulates over the whole sequence: kept in f32.
+        h = cfg.ssm_num_heads
+        return {"ssm": torch.zeros((*lead, batch, h, cfg.d_inner // h,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=device),
+                "conv": torch.zeros((*lead, batch, cfg.conv_width - 1,
+                                     cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=dt, device=device)}
     length = max_len
     if kind == "local" and cfg.sliding_window:
         length = min(max_len, cfg.sliding_window)  # ring buffer
@@ -320,16 +370,18 @@ def _cache_entry(kind: str, cfg: ModelConfig, lead: tuple[int, ...],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str | None = None, *,
                device: str | torch.device = "cuda"):
-    """Zeroed caches: group leaves ``(full_groups, B, ...)``, tail ``(B, ...)``."""
+    """Zeroed caches: group leaves ``(full_groups, B, ...)``, tail
+    ``(B, ...)``; each ``shared_attn`` position has its own attention cache."""
     dev = resolve_device(device)
     dt = _dtype(dtype or cfg.dtype)
-    return {
-        "groups": tuple(_cache_entry(kind, cfg, (cfg.full_groups,), batch,
-                                     max_len, dt, dev)
-                        for kind in cfg.pattern),
-        "tail": tuple(_cache_entry(kind, cfg, (), batch, max_len, dt, dev)
-                      for kind in cfg.tail),
-    }
+
+    def entry(kind, lead):
+        return _cache_entry("attn" if kind == "shared_attn" else kind, cfg,
+                            lead, batch, max_len, dt, dev)
+
+    return {"groups": tuple(entry(kind, (cfg.full_groups,))
+                            for kind in cfg.pattern),
+            "tail": tuple(entry(kind, ()) for kind in cfg.tail)}
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len, *,
@@ -357,18 +409,20 @@ def merge_cache_slots(live, fresh, slot_mask):
     """Copy the ``slot_mask`` rows of ``fresh`` into ``live``, in place.
 
     Group leaves are ``(full_groups, B, ...)`` (batch axis 1), tail leaves
-    ``(B, ...)`` (batch axis 0); rows where the mask is False keep their
-    live state bit for bit.  Returns ``live``.
+    ``(B, ...)`` (batch axis 0), whatever the block kind; rows where the
+    mask is False keep their live state bit for bit.  The rows are picked
+    by ``torch.where`` on a broadcast row mask, so a mask on the device is
+    never read back to the host.  Returns ``live``.
     """
-    entries = list(zip(live["groups"], fresh["groups"])) + \
-        list(zip(live["tail"], fresh["tail"]))
+    entries = [(le, fe, 1) for le, fe in zip(live["groups"], fresh["groups"])]
+    entries += [(le, fe, 0) for le, fe in zip(live["tail"], fresh["tail"])]
     if not entries:
         return live
     device = next(iter(entries[0][0].values())).device
     mask = torch.as_tensor(slot_mask, dtype=torch.bool, device=device)
-    n_groups = len(live["groups"])
-    for i, (le, fe) in enumerate(entries):
-        rows = (slice(None), mask) if i < n_groups else (mask,)
-        for k in le:
-            le[k][rows] = fe[k][rows].to(le[k].dtype)
+    for le, fe, axis in entries:
+        for k, leaf in le.items():
+            rows = mask.reshape((1,) * axis + (-1,)
+                                + (1,) * (leaf.ndim - axis - 1))
+            leaf.copy_(torch.where(rows, fe[k].to(leaf.dtype), leaf))
     return live

@@ -29,7 +29,10 @@ Every step of one engine is queued on one CUDA stream, so the pipelined
 loop's refill prefill, queued behind the decode it overlaps, runs after
 that decode on the card, and the decode's credit read (a copy queued after
 both) waits for the prefill too.  The loop's tokens are those of the
-sequential loops all the same.
+sequential loops all the same.  Queueing a step never syncs the host:
+every input crosses in one pinned ``non_blocking`` copy on the
+dispatcher's copy stream, the prompt tokens' timed placement waits for
+that copy alone, and the slot merge picks rows on the card.
 """
 
 from __future__ import annotations
@@ -156,7 +159,7 @@ class ServingEngine:
             np.asarray(tokens, np.int32), self.device)
         if metrics is not None:
             metrics.record_dispatch(dstats)
-        mask = torch.as_tensor(np.asarray(slot_mask, bool), device=self.device)
+        mask = self.dispatcher.put(np.asarray(slot_mask, bool), self.device)
         return self._launch(self._slot_prefill, self.params,
                             {"tokens": placed}, caches, mask,
                             dispatch_s=dstats.seconds)
@@ -196,8 +199,8 @@ class ServingEngine:
         lens = np.asarray(lens, np.int32)
         if lens.ndim == 0:
             lens = np.full((self.max_batch,), int(lens), np.int32)
-        tok_t = torch.as_tensor(np.asarray(tok, np.int32), device=self.device)
-        lens_t = torch.as_tensor(lens, device=self.device)
+        tok_t, lens_t = self.dispatcher.put((np.asarray(tok, np.int32), lens),
+                                            self.device)
         return self._launch(self._decode, self.params, tok_t, caches, lens_t)
 
     def decode(self, tok: np.ndarray, caches, lens):

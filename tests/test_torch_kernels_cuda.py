@@ -7,10 +7,12 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
   * fused AdamW: m and v bit-exact, p within one ULP, on
     tests/test_kernels.py's cases;
   * decode attention: the serving shape with the new token on the first or
-    last slot of a chunk of the scores kernel's split, and the cases that
+    last slot of a chunk of the scores kernel's split, the cases that
     take the kernels' scalar-load build (rows that are no multiple of 16
-    bytes, caches off a 16-byte boundary): caches bit-exact, out within
-    chip_smoke.py's ``TOL``.
+    bytes, caches off a 16-byte boundary), and qwen3-moe's and zamba2's
+    streaming shapes: caches bit-exact, out within chip_smoke.py's ``TOL``;
+  * the serving engine queues a prefill-into-slots step and decode steps
+    with no host sync (``torch.cuda.set_sync_debug_mode("error")``).
 
 This file imports neither jax nor the reference package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -105,3 +107,20 @@ def test_fused_adamw_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):      # a strided view
         q = torch.zeros(256, 2, device=card)[:, 0]
         FA.fused_adamw(q, q.clone(), p.clone(), p.clone(), hp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [SMOKE.MOE_ARCH, SMOKE.HYBRID_ARCH])
+def test_decode_attention_at_the_moe_and_hybrid_streaming_shapes(card, arch):
+    """qwen3-moe's G=8, D=128 and zamba2's G=1, D=64 at S=1040."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for case in SMOKE.stream_cases(sms, arch):
+        SMOKE.check_case(case, 0, card)
+
+
+@pytest.mark.cuda
+def test_engine_queues_steps_without_a_host_sync(card):
+    """prefill_into_slots_async and decode_async under
+    set_sync_debug_mode("error") (dense, MoE and hybrid, reduced)."""
+    res = SMOKE.check_no_sync(card)
+    assert set(res) == set(SMOKE.NO_SYNC_ARCHS)

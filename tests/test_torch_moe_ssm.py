@@ -1,0 +1,232 @@
+"""The port's MoE and Mamba2 layers against the reference, f32 on the CPU.
+
+  * ``moe_block``: the chosen experts (``top_ids``), the gates, each copy's
+    dispatch row (``dst``) and ``keep`` identical to the reference's (read
+    from the reference's own ``lax.top_k`` and ``route_group`` while it
+    runs), the output within ``rtol=atol=1e-5``; also with a small
+    ``capacity_factor`` that forces overflow drops, with exactly equal
+    router logits (ties broken in expert order, as ``lax.top_k`` does),
+    and with two routing groups;
+  * ``ssd_chunked`` against the reference (``rtol=atol=1e-5``) and against
+    a step-by-step f64 recurrence of the SSM (``rtol=1e-4, atol=1e-5``: f32
+    chunk sums against a sequential scan);
+  * ``_causal_conv``: one-token steps with the carried state give the
+    full-sequence conv (``rtol=atol=1e-6``);
+  * ``mamba_block``: a prefill of S tokens, then decode steps, gives what a
+    prefill of the longer sequence gives at those positions, and the same
+    SSM state (``rtol=1e-4, atol=1e-5``: the recurrent update against the
+    chunked form) and conv tail (``rtol=1e-5, atol=1e-6``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import layers as ref_layers
+from repro.models import scaled_down as ref_scaled_down
+from repro_torch.configs import get_config
+from repro_torch.models import layers, scaled_down
+
+
+def _cfgs(arch, **kw):
+    return (ref_scaled_down(ref_get_config(arch), **kw),
+            scaled_down(get_config(arch), **kw))
+
+
+def _moe_params(cfg, rng, tied: bool = False):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {"w_router": rng.standard_normal((d, e)) / np.sqrt(d),
+         "w_gate": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "w_in": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "w_out": rng.standard_normal((e, f, d)) / np.sqrt(f)}
+    if tied:   # small integers, experts 2j and 2j+1 share a router column
+        p["w_router"] = np.repeat(rng.integers(-1, 2, (d, e // 2)), 2, 1)
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _ref_moe_routing(x, p, cfg, monkeypatch):
+    """The reference's output and its own top-k and route_group values."""
+    seen = {}
+    top_k, vmap = jax.lax.top_k, jax.vmap
+
+    def recording_top_k(v, k):
+        seen["top"] = top_k(v, k)
+        return seen["top"]
+
+    def recording_vmap(fn, *a, **kw):
+        mapped = vmap(fn, *a, **kw)
+        if fn.__name__ != "route_group":
+            return mapped
+
+        def run(*args):
+            seen["route"] = mapped(*args)
+            return seen["route"]
+        return run
+
+    monkeypatch.setattr(jax.lax, "top_k", recording_top_k)
+    monkeypatch.setattr(jax, "vmap", recording_vmap)
+    y = ref_layers.moe_block(jnp.asarray(x), p, cfg, ref_layers.NO_SHARD)
+    monkeypatch.undo()
+    _, dst, keep = seen["route"]
+    top_logits, top_ids = seen["top"]
+    gates = jax.nn.softmax(top_logits.astype(jnp.float32), axis=-1)
+    return (np.asarray(y), np.asarray(top_ids), np.asarray(gates),
+            np.asarray(dst), np.asarray(keep))
+
+
+MOE_CASES = {
+    "default": ({}, False, (3, 16)),
+    "overflow": ({"capacity_factor": 0.25}, False, (3, 16)),
+    "tied-logits": ({}, True, (2, 12)),
+    "two-groups": ({"moe_groups": 2}, False, (4, 8)),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_block_routes_like_reference(case, monkeypatch):
+    kw, tied, (b, s) = MOE_CASES[case]
+    rcfg, cfg = _cfgs("qwen3-moe-30b-a3b", **kw)
+    rng = np.random.default_rng(11)
+    p = _moe_params(cfg, rng, tied)
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    if tied:
+        x = rng.integers(-2, 3, x.shape).astype(np.float32)
+    y, top_ids, gates, dst, keep = _ref_moe_routing(x, p, rcfg, monkeypatch)
+
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    g = cfg.moe_groups
+    tg = b * s // g
+    cap = layers.moe_capacity(tg, cfg)
+    got_ids, got_gates, got_dst, got_keep = layers.moe_route(
+        torch.from_numpy(x).reshape(g, tg, -1), tp["w_router"], cfg, cap)
+    np.testing.assert_array_equal(got_ids.numpy(), top_ids)
+    np.testing.assert_array_equal(got_dst.numpy(), dst)
+    np.testing.assert_array_equal(got_keep.numpy(), keep)
+    np.testing.assert_allclose(got_gates.numpy(), gates, rtol=1e-6,
+                               atol=1e-7)
+    got = layers.moe_block(torch.from_numpy(x), tp, cfg)
+    np.testing.assert_allclose(got.numpy(), y, rtol=1e-5, atol=1e-5)
+    if case == "overflow":
+        assert 0 < (~keep).sum() < keep.size      # some copies dropped
+    if tied:   # equal logits at the k-th place, broken by expert index
+        logits = x.reshape(-1, cfg.d_model) @ p["w_router"]
+        srt = np.sort(logits, axis=-1)[:, ::-1]
+        k = cfg.num_experts_per_tok
+        assert (srt[:, k - 1] == srt[:, k]).any()
+
+
+def _ssd_inputs(seed, b=2, t=32, h=3, pdim=4, n=5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, h, pdim)).astype(np.float32)
+    dt_a = -rng.random((b, t, h)).astype(np.float32) * 0.5
+    bm = rng.standard_normal((b, t, n)).astype(np.float32)
+    cm = rng.standard_normal((b, t, n)).astype(np.float32)
+    s0 = rng.standard_normal((b, h, pdim, n)).astype(np.float32)
+    return x, dt_a, bm, cm, s0
+
+
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_chunked_matches_reference_and_recurrence(chunk, with_state):
+    x, dt_a, bm, cm, s0 = _ssd_inputs(chunk)
+    init = s0 if with_state else None
+    y_ref, st_ref = ref_layers.ssd_chunked(
+        x, dt_a, bm, cm, chunk=chunk,
+        init_state=None if init is None else jnp.asarray(init))
+    y, st = layers.ssd_chunked(
+        *map(torch.from_numpy, (x, dt_a, bm, cm)), chunk=chunk,
+        init_state=None if init is None else torch.from_numpy(init))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_ref), rtol=1e-5,
+                               atol=1e-5)
+    # S_t = exp(dt_a_t) S_{t-1} + x_t (x) B_t ; y_t = C_t . S_t
+    state = (np.zeros(s0.shape) if init is None else s0).astype(np.float64)
+    want = np.zeros(x.shape)
+    for i in range(x.shape[1]):
+        state = np.exp(dt_a[:, i])[..., None, None] * state \
+            + np.einsum("bhp,bn->bhpn", x[:, i], bm[:, i])
+        want[:, i] = np.einsum("bn,bhpn->bhp", cm[:, i], state)
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), state, rtol=1e-4, atol=1e-5)
+
+
+def test_ssd_chunked_refuses_a_ragged_chunk():
+    x, dt_a, bm, cm, _ = _ssd_inputs(0, t=12)
+    with pytest.raises(ValueError, match="must divide chunk"):
+        layers.ssd_chunked(*map(torch.from_numpy, (x, dt_a, bm, cm)),
+                           chunk=8)
+
+
+def test_causal_conv_decode_steps_equal_prefill():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 10, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 6)).astype(np.float32))
+    full, none = layers._causal_conv(x, w, None)
+    assert none is None
+    ref, _ = ref_layers._causal_conv(jnp.asarray(x.numpy()),
+                                     jnp.asarray(w.numpy()), None)
+    np.testing.assert_allclose(full.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+    state = torch.zeros((2, 3, 6))
+    for t in range(10):
+        y, state = layers._causal_conv(x[:, t:t + 1], w, state)
+        torch.testing.assert_close(y[:, 0], full[:, t], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(state, x[:, -3:])
+
+
+def _mamba_params(cfg, rng):
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    p = {"w_z": rng.standard_normal((d, di)) / np.sqrt(d),
+         "w_x": rng.standard_normal((d, di)) / np.sqrt(d),
+         "w_bc": rng.standard_normal((d, 2 * n)) / np.sqrt(d),
+         "w_dt": rng.standard_normal((d, h)) / np.sqrt(d),
+         "w_conv": rng.standard_normal((cfg.conv_width, di + 2 * n)) / 2,
+         "a_log": rng.standard_normal(h) * 0.5,
+         "dt_bias": rng.standard_normal(h) - 2.0,
+         "d_skip": rng.standard_normal(h),
+         "w_norm": rng.standard_normal(di) * 0.1,
+         "w_out": rng.standard_normal((di, d)) / np.sqrt(di)}
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()}
+
+
+def _mamba_cache(cfg, b):
+    h = cfg.ssm_num_heads
+    return {"ssm": torch.zeros((b, h, cfg.d_inner // h, cfg.ssm_state)),
+            "conv": torch.zeros((b, cfg.conv_width - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state)),
+            "len": 0}
+
+
+@pytest.mark.parametrize("s,steps,chunk", [(15, 1, 32), (16, 8, 8)])
+def test_mamba_prefill_then_decode_equals_longer_prefill(s, steps, chunk):
+    cfg = dataclasses.replace(scaled_down(get_config("mamba2-370m")),
+                              ssm_chunk=chunk)
+    rng = np.random.default_rng(9)
+    p = _mamba_params(cfg, rng)
+    b = 2
+    x = torch.from_numpy(rng.standard_normal(
+        (b, s + steps, cfg.d_model)).astype(np.float32))
+    want, want_cache = layers.mamba_block(x, p, cfg,
+                                          cache=_mamba_cache(cfg, b))
+    cache = _mamba_cache(cfg, b)
+    ssm, conv = cache["ssm"], cache["conv"]
+    y, got_cache = layers.mamba_block(x[:, :s], p, cfg, cache=cache)
+    assert got_cache["ssm"] is ssm and got_cache["len"] == s   # in place
+    outs = []
+    for t in range(s, s + steps):
+        yt, _ = layers.mamba_block(x[:, t:t + 1], p, cfg, cache=cache)
+        outs.append(yt)
+    torch.testing.assert_close(y, want[:, :s], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(torch.cat(outs, 1), want[:, s:], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(ssm, want_cache["ssm"], rtol=1e-4, atol=1e-5)
+    # The conv tail holds input projections, one token's matmul against
+    # the whole sequence's: equal up to the last bits.
+    torch.testing.assert_close(conv, want_cache["conv"], rtol=1e-5,
+                               atol=1e-6)

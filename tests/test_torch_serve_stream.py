@@ -5,7 +5,9 @@
     every workload family, loop, fault kind and tenancy option;
   * ``execute=True`` on reduced chatglm3-6b with the reference's weights
     carried across: the same per-request tokens in the continuous,
-    ``wave_boundary`` and pipelined loops, fused and unfused;
+    ``wave_boundary`` and pipelined loops, fused and unfused; on reduced
+    qwen3-moe-30b-a3b and mamba2-370m, the CLI's trace at 8 requests gives
+    the reference's summary, schedule and tokens;
   * the discrete-event ``OffloadEngine`` and ``fit_pipelined_from_engine``
     are bit-identical to the reference's;
   * the streaming CLI prints what the reference's prints;
@@ -225,6 +227,64 @@ def test_execute_takes_a_model_config(exec_ref):
     assert have.keys() == want.keys() and want
     for rid in want:
         np.testing.assert_array_equal(have[rid], want[rid])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m"])
+def test_execute_other_families_match_reference(arch):
+    """The CLI's trace at ``--requests 8`` (prompts of 256-1024 tokens) on
+    a reduced MoE and a reduced SSM: the reference's summary (but for the
+    engine's measured seconds), admissions, plans and per-request
+    tokens."""
+    spec = dict(num_requests=8)
+    ref = ref_serve_workload(RefWorkloadSpec(**spec),
+                             config=RefServeConfig(arch=arch, reduced=True))
+    params = ref_init_params(jax.random.key(0),
+                             ref_scaled_down(ref_get_config(arch)))
+    got = serve_workload(WorkloadSpec(**spec), config=ServeConfig(
+        arch=arch, reduced=True, device="cpu", fused_decode=True,
+        params=params_from_numpy(jax.tree.map(np.asarray, params), "cpu")))
+    want, have = _outcome(ref), _outcome(got)
+    for key in ("admissions", "plans", "calibration", "requests"):
+        assert have[key] == want[key], key
+    # Every summary line but the engine's measured wall-clock seconds.
+    summaries = [out["metrics"].summary() for out in (ref, got)]
+    for summ in summaries:
+        del summ["wall"]
+    assert _dump(summaries[1]) == _dump(summaries[0])
+    lines = [[ln for ln in out["metrics"].format_summary().splitlines()
+              if not ln.startswith("engine wall:")] for out in (ref, got)]
+    assert lines[1] == lines[0]
+    want_tok, have_tok = _tokens(ref), _tokens(got)
+    assert have_tok.keys() == want_tok.keys() and want_tok
+    for rid in want_tok:
+        np.testing.assert_array_equal(have_tok[rid], want_tok[rid])
+    m = got["metrics"]
+    assert m.completed == m.admitted == ref["metrics"].admitted > 0
+
+
+def test_moe_rows_couple_only_through_capacity():
+    """With one routing group, an MoE batch's rows share the experts'
+    capacity, so loops that batch other rows together may emit other
+    tokens (ROADMAP C12, the reference's behaviour too).  With capacity to
+    spare, no copy overflows and every loop gives the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, scaled_down
+
+    def differing(capacity_factor):
+        cfg = dataclasses.replace(
+            scaled_down(get_config("qwen3-moe-30b-a3b")),
+            capacity_factor=capacity_factor)
+        params = init_params(cfg, seed=0, device="cpu")
+        runs = [_tokens(serve_workload(WorkloadSpec(**EXEC_SPEC),
+                                       config=ServeConfig(
+            arch=cfg, reduced=False, device="cpu", params=params, **kw)))
+            for kw in MODES.values()]
+        assert runs[0] and all(r.keys() == runs[0].keys() for r in runs)
+        return sum(not np.array_equal(r[rid], runs[0][rid])
+                   for r in runs[1:] for rid in runs[0])
+
+    assert differing(100.0) == 0
+    assert differing(1.25) > 0      # the reference's capacity factor
 
 
 # --------------------------------------------------------------------------- #

@@ -18,8 +18,13 @@ in f32, with the reference's parameters and optimizer state carried across.
     first step moves each parameter by ``lr * sign(g)`` and a gradient
     near 0 can take either sign in the two frameworks;
   * ``remat`` gradients equal the non-remat gradients exactly;
+  * qwen3-moe-30b-a3b, mamba2-370m and zamba2-1.2b, reduced: loss and
+    gradients as above, with ``atol`` scaled by a leaf's largest gradient
+    where that exceeds 1 (zamba2's ``shared`` block included), and one
+    train step's loss and grad_norm (the port's with remat and the fused
+    AdamW kernel's plain version);
   * the train CLI on the CPU, with and without ``--fused-adamw``, and a
-    resume from its own checkpoint.
+    resume from its own checkpoint; its default arch is the reference's.
 """
 
 import functools
@@ -232,6 +237,55 @@ def test_grads_reach_every_stacked_leaf(setup):
 
 
 # --------------------------------------------------------------------------- #
+# The MoE, SSM and hybrid families
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m",
+                                  "zamba2-1.2b"])
+def test_other_families_train_step_matches_reference(arch):
+    """Loss and every gradient leaf as in the dense test; zamba2's
+    ``shared`` block gathers its gradient from all its invocations."""
+    cfg_r = ref_scaled_down(ref_get_config(arch))
+    cfg_t = scaled_down(get_config(arch))
+    params = ref_init_params(jax.random.key(0), cfg_r)
+    tokens = next(ref_packed_batches(RefDataConfig(
+        vocab_size=cfg_r.vocab_size, seq_len=S, global_batch=B, seed=1)))
+    want_loss, want_grads = _ref_grads(cfg_r, params, tokens)
+    got_loss, got_grads = _port_grads(cfg_t, _torch(params), tokens)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-6)
+    # atol 1e-6 per unit of the leaf's largest gradient where that exceeds
+    # 1: the embedding's, behind each block's RMSNorm, reaches ~17 on
+    # zamba2, where f32 sums in another order move a small entry by 1e-5
+    # (2e-6 of the leaf's largest).
+    got, want = _leaves(got_grads), jax.tree.leaves(want_grads)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-6 * max(1.0, np.abs(w).max()))
+    if cfg_t.uses_shared_block:
+        wq = got_grads["shared"]["attn"]["wq"]
+        assert wq.shape == want_grads["shared"]["attn"]["wq"].shape
+        assert float(wq.abs().sum()) > 0
+
+    mesh = make_host_mesh(1, 1)
+    bundle = rsteps.make_train_step(
+        cfg_r, mesh, {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32)},
+        RefAdamWConfig(**OPT), remat=False)
+    with mesh:
+        _, _, want = jax.jit(bundle.fn)(params, ref_init_opt_state(params),
+                                        {"tokens": jnp.asarray(tokens)})
+    step = tsteps.make_train_step(cfg_t, opt_cfg=AdamWConfig(**OPT),
+                                  remat=True, fused_adamw=True)
+    p = _torch(params)
+    state = opt_state_from_numpy(_np(ref_init_opt_state(params)), "cpu")
+    _, _, got = step(p, state, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(want["grad_norm"]), rtol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
 # The train CLI
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
@@ -254,3 +308,11 @@ def test_train_cli_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         ttrain.main(["--reduced", "--steps", "1"])
+
+
+def test_train_cli_default_arch_is_the_references(tmp_path):
+    out = ttrain.main(["--reduced", "--device", "cpu", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--log-every", "1",
+                       "--ckpt-dir", str(tmp_path)])
+    assert out["cfg"] == "mamba2-370m"
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
