@@ -72,7 +72,27 @@ printing a result:
  10. kernel vs plain optimizer: 3 training steps at full width in f32, depth
      cut to 2 layers, from the same weights and batches: losses within 1e-5
      relative, parameters within the tolerance stated at OPT_PARAM_TOL;
- 11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+ 11. the co-design explorer and the fleet (every earlier phase's weights
+     freed first, memory printed before and after): ``run_sweep`` over the
+     paper's space, serially and on EXPLORER_WORKERS worker processes,
+     equal, its front holding the co-design point (multicast dispatch,
+     credit sync) with the paper's +47.9 % at (M=32, N=1024); that point
+     served by ``serve_workload(design=...)`` on the stream trace,
+     chatglm3-6b at full width, fused decode: every request admitted or
+     rejected, every admitted one completed with in-range tokens, every
+     credit read at its threshold, the kernel launched 28 x the decode
+     steps; the same trace at 4 layers in f32, fused and unfused, equal
+     token streams; then ``serve_fleet`` on a 32+8+8 fleet at full width,
+     one bf16 weight tree shared by the three lanes' engines (unfused, as
+     the reference's fleet decodes): the stream trace, the CI chaos step's
+     traffic with lane 1 crashed, and its 96 requests with a crash that
+     finds a request mid-decode (restored from lane 1's checkpoint) — the
+     routes, per-lane counts and fleet summary equal those of the same
+     call with a narrow model of the same vocabulary, every request not
+     dropped completed, no decode-kernel launch; at 4 layers in f32, how
+     many of the chaos runs' token streams equal the fault-free run's (a
+     finding, not a gate);
+ 12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one card.  Without one (``torch.cuda.is_available()`` false), or
 without the ``src/repro_torch`` package beside it, it exits non-zero at
@@ -81,7 +101,9 @@ once.  Full results also go to ``results/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import importlib
 import json
 import shutil
 import statistics
@@ -164,6 +186,22 @@ MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("qwen3-moe-30b-a3b", "mamba2-370m",
                                    "zamba2-1.2b")
 FAMILY_REQUESTS = 16
 FAMILY_CHECK_LAYERS = {MOE_ARCH: 2, HYBRID_ARCH: 6}
+# The fleet and the co-design explorer: the explorer's paper space swept
+# serially and over EXPLORER_WORKERS processes; the co-design point's
+# headline gain at (M=32, N=1024) over the paper baseline (Fig. 1 right,
+# as tests/test_dse.py asserts it); a big + two little fabrics; the CI
+# chaos-smoke step's traffic (.github/workflows/ci.yml) with its crash on
+# the stream trace's request count, and on the step's own 96 requests with
+# a crash that finds a request mid-decode at lane 1's last checkpoint (at
+# 0.45 none is, so nothing is restored there); FLEET_CHECK_LAYERS is the
+# depth of the token-stream checks in f32.
+EXPLORER_WORKERS = 4
+CODESIGN_GAIN, CODESIGN_CELL, CODESIGN_TOL = 1.479, (32, 1024), 5e-3
+FLEET_SIZES = (32, 8, 8)
+CHAOS_TRAFFIC = dict(rate_rps=1.5e6, slo_fraction=0.5, seed=11)
+CHAOS_FAULTS = "crash@1:0.45"
+RESTORE_REQUESTS, RESTORE_FAULTS = 96, "crash@1:0.6"
+FLEET_CHECK_LAYERS = 4
 # The archs whose engine steps are queued under the sync debug mode.
 NO_SYNC_ARCHS = (ARCH, MOE_ARCH, HYBRID_ARCH)
 # daxpy: the shapes and dtypes of tests/test_kernels.py, and the sizes the
@@ -502,30 +540,17 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     layer for every decode job and warm-up decode."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.sync import (CreditCounterSync, FaultDetected,
-                                       credit_threshold)
+    from repro_torch.core.sync import credit_threshold
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.obs import Tracer
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
     cfg = get_config(arch)
     n_attn = attention_layers(cfg)
-    reads = []
-    wait = CreditCounterSync.wait
-
-    def recording_wait(self, credits):
-        try:
-            got = wait(self, credits)
-        except FaultDetected:
-            reads.append(None)
-            raise
-        reads.append(got)
-        return got
-
     tracer = Tracer()     # its wall-domain spans give the decode seconds
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
-    CreditCounterSync.wait = recording_wait
+    reads, undo = _record_credit_reads()
     try:
         DA.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -536,7 +561,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         wall = time.perf_counter() - t0
         launches = DA.LAUNCHES
     finally:
-        CreditCounterSync.wait = wait
+        undo()
     m, reqs = out["metrics"], out["requests"]
     threshold = credit_threshold()
     n_lengths = len({r.prompt_len for r in reqs})   # one warm-up each
@@ -737,12 +762,15 @@ def check_no_sync(dev) -> dict:
 
 
 def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
-                                  layers: int = STREAM_CHECK_LAYERS) -> dict:
+                                  layers: int = STREAM_CHECK_LAYERS,
+                                  design=None) -> dict:
     """The streaming trace at full width, depth cut to ``layers``, f32, on
     the simulated fabric (a fixed schedule): fused and unfused decoding,
     and the fused pipelined loop, must give the same token stream for
     every request.  If a token differs, the report names the decode step,
-    the row and the row's smallest top-k router margin.
+    the row and the row's smallest top-k router margin.  With ``design``
+    (a swept co-design point) the fabric is that design's, and the
+    pipelined loop is left out.
 
     One exception, for an MoE: the pipelined loop batches other requests
     together, and with one routing group a batch's rows share the
@@ -757,8 +785,9 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
     cfg = replace(get_config(arch), num_layers=layers, dtype="float32")
     n_attn = attention_layers(cfg)
     params = init_params(cfg, seed=0, device=dev)   # serving leaves it as is
-    runs = {"fused": (True, False), "unfused": (False, False),
-            "fused-pipelined": (True, True)}
+    runs = {"fused": (True, False), "unfused": (False, False)}
+    if design is None:
+        runs["fused-pipelined"] = (True, True)
     streams, plans, launches, taps = {}, {}, {}, {}
     for name, (fused, pipeline) in runs.items():
         DA.LAUNCHES = 0
@@ -767,7 +796,7 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
             out = serve_workload(stream_spec(), config=ServeConfig(
                 arch=cfg, reduced=False, fused_decode=fused,
                 fabric="simulated", pipeline=pipeline, device=dev,
-                params=params))
+                params=params, design=design))
         finally:
             undo()
         launches[name] = DA.LAUNCHES
@@ -778,7 +807,7 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
         raise AssertionError(f"{arch}: the simulated schedule differs "
                              "between runs")
     coupled = {}      # the pipelined run's differing requests (an MoE)
-    for name in ("unfused", "fused-pipelined"):
+    for name in [n for n in runs if n != "fused"]:
         if streams[name].keys() != streams["fused"].keys():
             raise AssertionError(f"{arch} {name}: other requests completed")
         bad = [rid for rid in streams["fused"]
@@ -804,18 +833,428 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
     n_tok = sum(len(v) for v in streams["fused"].values())
     margins = taps["fused"]["margins"]
     smallest = (min(float(m.min()) for m in margins) if margins else None)
-    same = "fused and unfused" if coupled else \
-        "fused, unfused and fused-pipelined"
+    names = [n for n in runs if not (coupled and n == "fused-pipelined")]
+    same = ", ".join(names[:-1]) + " and " + names[-1]
+    where = ("simulated fabric" if design is None else
+             f"the simulated fabric of design [{design.name}]")
     log(f"[stream-check] {arch}, f32, full width, depth cut to {layers} "
-        f"layers, simulated fabric: {same} token streams equal for "
+        f"layers, {where}: {same} token streams equal for "
         f"{len(streams['fused'])} requests ({n_tok} tokens; kernel launches "
         f"{launches}"
         + ("" if smallest is None else
            f"; smallest decode-row top-k router margin {smallest:.3e}") + ")")
     return {"arch": arch, "layers": layers, "dtype": "float32",
+            "design": None if design is None else design.name,
             "requests": len(streams["fused"]), "tokens": n_tok,
             "launches": launches, "smallest_router_margin": smallest,
             "pipelined_differs_c12": coupled}
+
+
+# --------------------------------------------------------------------------- #
+# The co-design explorer and the fleet
+# --------------------------------------------------------------------------- #
+def _record_credit_reads():
+    """Wrap ``CreditCounterSync.wait`` to record every credit read (None
+    where a fault was detected); returns the record and an undo."""
+    from repro_torch.core.sync import CreditCounterSync, FaultDetected
+
+    reads, wait = [], CreditCounterSync.wait
+
+    def recording_wait(self, credits):
+        try:
+            got = wait(self, credits)
+        except FaultDetected:
+            reads.append(None)
+            raise
+        reads.append(got)
+        return got
+
+    CreditCounterSync.wait = recording_wait
+
+    def undo():
+        CreditCounterSync.wait = wait
+    return reads, undo
+
+
+def _check_requests(reqs, vocab: int, tag: str) -> None:
+    """Every request completed, was rejected at admission, or was dropped
+    (FAILED); a completed one has gen_len tokens, each in the vocabulary."""
+    from repro_torch.serve import RequestState
+
+    ends = (RequestState.DONE, RequestState.REJECTED, RequestState.FAILED)
+    for r in reqs:
+        if r.state not in ends:
+            raise AssertionError(f"{tag}: request {r.rid} ended {r.state}")
+        if r.state is RequestState.DONE:
+            toks = r.generated
+            if len(toks) != r.gen_len or toks.min() < 0 or \
+                    toks.max() >= vocab:
+                raise AssertionError(f"{tag}: request {r.rid}: tokens {toks}")
+
+
+def phase_explorer() -> tuple[dict, object]:
+    """The explorer on the paper's space, ``run_sweep`` serially and over
+    EXPLORER_WORKERS worker processes: the CPU's work, run from the card's
+    process (the workers import torch and touch no card).  Both must give
+    the same results, the pool must really have run (the runner falls back
+    to a serial sweep when its pool fails), and the front must hold the
+    co-design point (multicast dispatch, credit sync) with the paper's
+    gain over the baseline.  Returns the record and that point."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.dse import PAPER_SPACE, front, run_sweep, runner
+
+    completed = []       # one entry per design a pool worker evaluated
+
+    class CountingPool(ProcessPoolExecutor):
+        def submit(self, *args, **kwargs):
+            fut = super().submit(*args, **kwargs)
+            fut.add_done_callback(
+                lambda f: f.exception() is None and completed.append(1))
+            return fut
+
+    def plain(r) -> str:
+        return json.dumps({**r.as_dict(), "runtimes": sorted(r.runtimes.items()),
+                           "speedups": sorted(r.speedup_vs_baseline.items())},
+                          sort_keys=True)
+
+    t0 = time.perf_counter()
+    serial = run_sweep(PAPER_SPACE, workers=1)
+    serial_s = time.perf_counter() - t0
+    runner.ProcessPoolExecutor = CountingPool
+    try:
+        t0 = time.perf_counter()
+        parallel = run_sweep(PAPER_SPACE, workers=EXPLORER_WORKERS)
+        parallel_s = time.perf_counter() - t0
+    finally:
+        runner.ProcessPoolExecutor = ProcessPoolExecutor
+    if len(completed) != len(serial):
+        raise AssertionError(f"the {EXPLORER_WORKERS}-worker pool completed "
+                             f"{len(completed)} of {len(serial)} "
+                             "designs (the sweep fell back to serial)")
+    if [plain(r) for r in parallel] != [plain(r) for r in serial]:
+        raise AssertionError("the parallel sweep differs from the serial one")
+    fr = front(serial)
+    ext = next((r for r in fr if r.point.is_paper_extended), None)
+    if ext is None:
+        raise AssertionError(f"the front {[r.point.name for r in fr]} lacks "
+                             "the co-design point")
+    gain = ext.speedup_vs_baseline[CODESIGN_CELL]
+    if abs(gain - CODESIGN_GAIN) > CODESIGN_TOL:
+        raise AssertionError(f"co-design speedup {gain} at {CODESIGN_CELL}, "
+                             f"expected {CODESIGN_GAIN} +- {CODESIGN_TOL}")
+    res = {"designs": len(serial), "workers": EXPLORER_WORKERS,
+           "serial_s": serial_s, "parallel_s": parallel_s,
+           "front": [r.point.name for r in fr], "codesign": ext.point.name,
+           "speedup_at": list(CODESIGN_CELL), "speedup": gain,
+           "best_speedup": ext.best_speedup, "mape_pct": ext.mape_pct,
+           "model": ext.as_dict()["model"], "breakeven_n": ext.breakeven_n}
+    log(f"[explorer] run_sweep over the paper space: {len(serial)} designs, "
+        f"serial {serial_s:.3f} s and {EXPLORER_WORKERS} worker processes "
+        f"{parallel_s:.3f} s (all {len(completed)} designs on the "
+        f"pool), identical; front {res['front']}")
+    log(f"[explorer] co-design point [{ext.point.name}]: speedup "
+        f"{gain:.4f}x over the paper baseline at (M, N) = {CODESIGN_CELL} "
+        f"(+{100 * (gain - 1):.1f} %; paper 47.9 %), best {ext.best_speedup:.4f}x; "
+        f"Eq.-1 refit alpha {ext.model.alpha:.1f} beta {ext.model.beta:.4f} "
+        f"gamma {ext.model.gamma:.4f}, MAPE {ext.mape_pct:.3f} %; "
+        f"break-even N {ext.breakeven_n}")
+    return res, ext.point
+
+
+def phase_design_point(dev, point) -> dict:
+    """A swept design point served: ``serve_workload`` on the stream trace
+    with ``design=point`` (its simulated fabric and its own Eq.-1 prior),
+    chatglm3-6b at full width, fused decode.  The kernel must launch once
+    per attention layer for every decode step the engine ran (there is no
+    warm-up on the simulated fabric), and every credit read must be at its
+    threshold."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import credit_threshold
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.serve import ServeConfig, serve_workload
+
+    cfg = get_config(ARCH)
+    n_attn = attention_layers(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
+    reads, undo = _record_credit_reads()
+    try:
+        DA.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = serve_workload(stream_spec(), config=ServeConfig(
+            arch=ARCH, reduced=False, fused_decode=True, design=point,
+            device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = DA.LAUNCHES
+    finally:
+        undo()
+    m, plans = out["metrics"], out["plans"]
+    steps = sum(p.kind == "decode" for p in plans)
+    if launches != n_attn * steps:
+        raise AssertionError(f"kernel launched {launches} times serving "
+                             f"[{point.name}], expected {n_attn} x {steps}")
+    threshold = credit_threshold()
+    if len(reads) != len(plans) or any(r != threshold for r in reads):
+        raise AssertionError(f"{len(reads)} credit reads for {len(plans)} "
+                             f"jobs, below threshold: "
+                             f"{[r for r in reads if r != threshold]}")
+    _check_requests(out["requests"], cfg.vocab_size, "design point")
+    if (m.admitted + m.rejected != STREAM_REQUESTS
+            or m.completed != m.admitted or m.dropped):
+        raise AssertionError(f"admitted {m.admitted}, rejected {m.rejected},"
+                             f" completed {m.completed}, dropped {m.dropped}")
+    snap = out["calibration"]
+    summ = m.summary()
+    res = {"design": point.name, "arch": ARCH, "layers": cfg.num_layers,
+           "requests": STREAM_REQUESTS, "admitted": m.admitted,
+           "rejected": m.rejected, "completed": m.completed,
+           "prefill_steps": sum(p.kind == "prefill" for p in plans),
+           "decode_steps": steps, "offloaded_decode_jobs": m.decode_jobs,
+           "launches": launches, "credit_reads": len(reads),
+           "calibration": snap.as_dict(),
+           "latency_p50_us": summ["latency_us"]["p50"],
+           "latency_p99_us": summ["latency_us"]["p99"],
+           "step_p50_ms": summ["wall"]["step_p50_ms"],
+           "memory_allocated_before": mem_before,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "serve_wall_s": wall}
+    card = card_line()
+    log(f"[design] {card}: {ARCH} full width on the simulated fabric of "
+        f"[{point.name}], {STREAM_REQUESTS} requests at {STREAM_RATE:g} "
+        f"req/s (seed {STREAM_SEED}), fused decode: admitted {m.admitted}, "
+        f"rejected {m.rejected}, completed {m.completed}; {res['prefill_steps']}"
+        f" prefill and {steps} decode steps ({m.decode_jobs} offloaded); "
+        f"kernel launches {launches} == {n_attn} x {steps}; credit reads "
+        f"{len(reads)}/{len(plans)} at threshold")
+    log(f"[design] {card}: prior = the design's Eq.-1 refit, calibrated "
+        f"[{snap.source}, {snap.n_samples} samples] alpha {snap.alpha:.1f} "
+        f"beta {snap.beta:.4f} gamma {snap.gamma:.4f} (cycles); latency p50 "
+        f"{res['latency_p50_us']:.1f} us, p99 {res['latency_p99_us']:.1f} us "
+        f"(virtual); engine step p50 {res['step_p50_ms']:.2f} ms; "
+        f"max_memory_allocated {gib(res['max_memory_allocated'])}; wall "
+        f"{wall:.1f} s")
+    return res
+
+
+def chaos_spec(requests: int = STREAM_REQUESTS):
+    from repro_torch.serve import WorkloadSpec
+    return WorkloadSpec(num_requests=requests, **CHAOS_TRAFFIC)
+
+
+def run_fleet(dev, spec, arch, params, faults: str | None = None,
+              tag: str = "fleet", compare: bool = True) -> tuple[dict, dict]:
+    """``serve_fleet`` on FLEET_SIZES, pipelined, one engine per lane on the
+    card, all lanes reading ``params``; with ``faults``, restore recovery.
+    Routing and the schedule are cycle-model decisions, so with
+    ``compare`` the routes, each lane's counts and the fleet summary must
+    equal those of the same call with a narrow model of the same
+    vocabulary (``scaled_down``), hence the same trace.  The same call
+    with ``execute=False`` is no such reference: it builds the trace
+    without prompt tokens, whose draws interleave with the lengths' and
+    deadlines', so it serves another trace; and with no engine the
+    pipelined loop lets a prefill overlap any number of decodes, not one.
+    Returns the record and the completed requests' token streams."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import scaled_down
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import FleetConfig, RequestState, serve_fleet
+    from repro_torch.serve.batcher import model_config
+
+    kw = dict(fleet=FLEET_SIZES, arch=arch, reduced=False, pipeline=True)
+    if faults is not None:
+        kw.update(faults=faults, recovery="restore")
+    mcfg = model_config(arch, reduced=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem_before = torch.cuda.memory_allocated(dev)
+    tracer = Tracer()     # its wall-domain spans split each lane's seconds
+    DA.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = serve_fleet(spec, config=FleetConfig(
+        execute=True, params=params, device=dev, tracer=tracer, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = DA.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def routes(o):
+        return json.dumps([dataclasses.asdict(d) for d in o["routes"]],
+                          default=repr)
+
+    def counts(o):
+        return [(lm.admitted, lm.rejected, lm.completed, lm.prefill_jobs,
+                 lm.decode_jobs, lm.restore_jobs, len(lane["requests"]))
+                for lane in o["lanes"] for lm in [lane["metrics"]]]
+
+    def summary(o):
+        return json.dumps(o["metrics"].summary(), sort_keys=True, default=repr)
+
+    compare_s = None
+    if compare:
+        narrow = replace(scaled_down(mcfg), vocab_size=mcfg.vocab_size)
+        t0 = time.perf_counter()
+        small = serve_fleet(spec, config=FleetConfig(
+            execute=True, device=dev, **{**kw, "arch": narrow}))
+        compare_s = time.perf_counter() - t0
+        for what, fn in (("routes", routes), ("per-lane counts", counts),
+                         ("FleetMetrics.summary()", summary)):
+            if fn(out) != fn(small):
+                raise AssertionError(f"{tag}: the {what} differ from those "
+                                     "of the same call with a narrow model")
+    if launches:
+        raise AssertionError(f"{tag}: the fleet decodes unfused, yet the "
+                             f"decode kernel launched {launches} times")
+    reqs = out["requests"]
+    _check_requests(reqs, mcfg.vocab_size, tag)
+    failed = sorted(r.rid for r in reqs if r.state is RequestState.FAILED)
+    if failed != out["dropped"]:
+        raise AssertionError(f"{tag}: failed {failed}, dropped "
+                             f"{out['dropped']}")
+    summ = out["metrics"].summary()
+    ft = summ["faults"]
+    lanes = []
+    for lane, o in zip(out["fleet"].lanes, out["lanes"]):
+        lm = o["metrics"]
+        walls = {k: sum(e.dur for e in tracer.events
+                        if e.domain == "wall_s" and e.proc == lane.name
+                        and e.name == k) for k in ("prefill", "decode")}
+        lanes.append({"lane": lane.name, "admitted": lm.admitted,
+                      "rejected": lm.rejected, "completed": lm.completed,
+                      "decode_steps": sum(p.kind == "decode"
+                                          for p in o["plans"]),
+                      "prefill_steps": sum(p.kind in ("prefill", "restore")
+                                           for p in o["plans"]),
+                      "engine_s": lm.step_wall_s.total(),
+                      "prefill_s": walls["prefill"],
+                      "decode_s": walls["decode"]})
+    requeued = sorted(r.rid for r in reqs if r.requeues)
+    restored = {r.rid: r.restore_len for r in reqs if r.restore_len > 0}
+    if faults is not None:
+        if out["dead_lanes"] != [1] or not ft["orphaned"] or \
+                ft["requeued"] != ft["orphaned"] or \
+                len(requeued) != ft["orphaned"]:
+            raise AssertionError(f"{tag}: dead lanes {out['dead_lanes']}, "
+                                 f"faults {ft}")
+        if len(restored) != sum(r.rid in restored and r.state is
+                                RequestState.DONE for r in reqs):
+            raise AssertionError(f"{tag}: a restored request did not "
+                                 "complete")
+    res = {"sizes": list(FLEET_SIZES), "layers": mcfg.num_layers,
+           "dtype": mcfg.dtype, "requests": spec.num_requests,
+           "traffic": {"rate_rps": spec.rate_rps,
+                       "slo_fraction": spec.slo_fraction, "seed": spec.seed},
+           "faults": faults, "admitted": summ["admitted"],
+           "rejected": summ["rejected"], "completed": summ["completed"],
+           "lanes": lanes, "launches": launches, "fault_counts": ft,
+           "dead_lanes": out["dead_lanes"], "dropped": out["dropped"],
+           "requeued": requeued, "restored": restored,
+           "latency_p99_us": summ["latency_us"]["p99"],
+           "imbalance": summ["imbalance"], "compared_narrow": compare,
+           "compare_s": compare_s,
+           "memory_allocated_before": mem_before,
+           "max_memory_allocated": peak, "wall_s": wall}
+    streams = {r.rid: r.generated.tolist() for r in reqs
+               if r.state is RequestState.DONE}
+    return res, streams
+
+
+def _log_fleet(tag: str, res: dict) -> None:
+    card = card_line()
+    per_lane = "; ".join(
+        f"{ln['lane']} admitted {ln['admitted']} rejected {ln['rejected']} "
+        f"completed {ln['completed']}, {ln['prefill_steps']} prefill and "
+        f"{ln['decode_steps']} decode steps, engine {ln['engine_s']:.2f} s "
+        f"(prefill {ln['prefill_s']:.2f} s, decode {ln['decode_s']:.2f} s)"
+        for ln in res["lanes"])
+    log(f"[{tag}] {card}: {ARCH} {res['layers']} layers {res['dtype']}, "
+        f"fleet {'+'.join(map(str, res['sizes']))} pipelined, "
+        f"{res['requests']} requests {res['traffic']}"
+        + (f", faults {res['faults']} (restore)" if res["faults"] else "")
+        + f": admitted {res['admitted']}, rejected {res['rejected']}, "
+        f"completed {res['completed']}; {per_lane}")
+    same = ("routes, per-lane counts and FleetMetrics.summary() equal the "
+            f"narrow model's run ({res['compare_s']:.1f} s); "
+            if res["compared_narrow"] else "")
+    log(f"[{tag}] {card}: {same}decode-kernel launches "
+        f"{res['launches']} (unfused); wall {res['wall_s']:.1f} s; "
+        f"max_memory_allocated {gib(res['max_memory_allocated'])} (before "
+        f"{gib(res['memory_allocated_before'])})")
+    if res["faults"]:
+        log(f"[{tag}] {card}: dead lanes {res['dead_lanes']}; faults "
+            f"{res['fault_counts']}; requeued {res['requeued']}; restored "
+            f"from lane 1's checkpoints {res['restored'] or 'none'}; dropped "
+            f"{res['dropped']}")
+
+
+def phase_fleet(dev) -> dict:
+    """A three-lane fleet at full width, one bf16 weight tree on the card
+    read by every lane: the stream trace (c), the CI chaos step's traffic
+    with its crash (d), and the step's 96 requests with a crash that
+    catches a request mid-decode (its decode state restored)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    params = init_params(get_config(ARCH), seed=0, device=dev)
+    torch.cuda.synchronize()
+    res = {"weights_bytes": sum(t.numel() * t.element_size()
+                                for t in pytree.tree_leaves(params))}
+    for tag, spec, faults in (
+            ("fleet", stream_spec(), None),
+            ("fleet-chaos", chaos_spec(), CHAOS_FAULTS),
+            ("fleet-restore", chaos_spec(RESTORE_REQUESTS), RESTORE_FAULTS)):
+        res[tag], _ = run_fleet(dev, spec, ARCH, params, faults, tag)
+        _log_fleet(tag, res[tag])
+    if not res["fleet-restore"]["restored"]:
+        raise AssertionError("fleet-restore: no request resumed from lane "
+                             "1's checkpoints")
+    return res
+
+
+def phase_fleet_tokens(dev) -> dict:
+    """The chaos runs' token streams against the fault-free run's, at full
+    width, depth cut to FLEET_CHECK_LAYERS, f32: a finding, not a gate (a
+    requeued request is prefilled again, and a restored one resumes from
+    its checkpoint)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = replace(get_config(ARCH), num_layers=FLEET_CHECK_LAYERS,
+                  dtype="float32")
+    params = init_params(cfg, seed=0, device=dev)
+    res = {}
+    for tag, spec, faults in (
+            ("chaos", chaos_spec(), CHAOS_FAULTS),
+            ("restore", chaos_spec(RESTORE_REQUESTS), RESTORE_FAULTS)):
+        t0 = time.perf_counter()
+        _, clean = run_fleet(dev, spec, cfg, params, None, f"{tag}-clean",
+                             compare=False)
+        crashed, streams = run_fleet(dev, spec, cfg, params, faults, tag,
+                                     compare=False)
+        same = sorted(rid for rid in streams if streams[rid] == clean.get(rid))
+        requeued = [rid for rid in crashed["requeued"]
+                    if rid in streams and rid not in crashed["restored"]]
+        res[tag] = {"faults": faults, "completed": len(streams),
+                    "equal": len(same), "requeued_completed": len(requeued),
+                    "requeued_equal": sum(rid in same for rid in requeued),
+                    "restored": crashed["restored"],
+                    "restored_equal": sum(int(rid) in same
+                                          for rid in crashed["restored"]),
+                    "wall_s": time.perf_counter() - t0}
+        log(f"[fleet-tokens] {ARCH} {FLEET_CHECK_LAYERS} layers f32, "
+            f"{spec.num_requests} requests, {faults}: {len(same)} of "
+            f"{len(streams)} completed requests emit the fault-free run's "
+            f"token stream; of the {len(requeued)} requeued and prefilled "
+            f"again, {res[tag]['requeued_equal']}; restored "
+            f"{crashed['restored'] or 'none'}, equal "
+            f"{res[tag]['restored_equal']} ({res[tag]['wall_s']:.1f} s for "
+            "both runs)")
+    return res
 
 
 def _kind(name: str) -> str:
@@ -995,7 +1434,7 @@ def check_daxpy(dev) -> dict:
     """Kernel vs ``daxpy_plain``, bit-exact: test_kernels.py's shapes and
     dtypes, every length 1..5000 (f32), and unaligned views (scalar path)."""
     import torch
-    from repro_torch.kernels import daxpy as DX
+    DX = importlib.import_module("repro_torch.kernels.daxpy")
 
     g = torch.Generator().manual_seed(0)
     cases = [(shape, dt, 2.5) for shape in DAXPY_SHAPES
@@ -1039,7 +1478,7 @@ def phase_daxpy_offload(dev) -> dict:
     """The kernel ops' main path: one ``kernels.ops.daxpy`` job per size,
     launches counted from 0, each result held against the plain version."""
     import torch
-    from repro_torch.kernels import daxpy as DX
+    DX = importlib.import_module("repro_torch.kernels.daxpy")
     from repro_torch.kernels import ops
 
     inputs = {n: _daxpy_inputs(n, dev) for n in DAXPY_SIZES}
@@ -1061,7 +1500,7 @@ def phase_daxpy_offload(dev) -> dict:
 
 def time_daxpy(dev) -> list[dict]:
     import torch
-    from repro_torch.kernels import daxpy as DX
+    DX = importlib.import_module("repro_torch.kernels.daxpy")
 
     rows = []
     for n in DAXPY_SIZES:
@@ -1613,6 +2052,28 @@ def main() -> int:
 
     # 10. Kernel vs plain optimizer.
     results["optimizer_paths"] = phase_optimizer_paths(dev)
+    free()
+
+    # 11. The co-design explorer, a swept design point served (its decode
+    # launches counted from 0), and a three-lane fleet with its chaos runs;
+    # every earlier phase's weights freed first.
+    t0 = time.perf_counter()
+    mem = torch.cuda.memory_allocated(dev)
+    log(f"[fleet] memory_allocated before the phase {gib(mem)}")
+    results["explorer"], codesign = phase_explorer()
+    results["design_point"] = phase_design_point(dev, codesign)
+    free()
+    results["design_point_check"] = phase_stream_fused_vs_unfused(
+        dev, design=codesign)
+    free()
+    results["fleet"] = phase_fleet(dev)
+    free()
+    results["fleet_tokens"] = phase_fleet_tokens(dev)
+    free()
+    results["fleet_phase_s"] = time.perf_counter() - t0
+    log(f"[fleet] memory_allocated after the phase "
+        f"{gib(torch.cuda.memory_allocated(dev))}; phase "
+        f"{results['fleet_phase_s']:.1f} s")
     results["total_s"] = time.perf_counter() - t_start
 
     dx = results["daxpy_timing"][-1]            # n = 2^27, f32
@@ -1626,6 +2087,10 @@ def main() -> int:
          "nsplit": nsplit, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None,
          "stream_launches": results["stream"]["launches"],
+         "design_launches": results["design_point"]["launches"],
+         "fleet_launches": sum(results["fleet"][t]["launches"]
+                               for t in ("fleet", "fleet-chaos",
+                                         "fleet-restore")),
          "stream_shape_ms": st["kernel_ms"],
          "stream_shape_plain_ms": st["plain_ms"],
          "stream_shape_bound_ms": st["bound_ms"],

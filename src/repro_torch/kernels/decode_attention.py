@@ -131,6 +131,20 @@ def _lens(cache_len, b: int, device: torch.device) -> torch.Tensor:
     return lens.contiguous()
 
 
+def write_slots(cache: torch.Tensor, rows: torch.Tensor, write: torch.Tensor,
+                val: torch.Tensor) -> None:
+    """``cache[rows, write] = val`` in place, a write past the cache dropped
+    as the reference's scatter and the kernel drop it (a freed slot keeps
+    its last length, which runs one past the cache after a request
+    restored from a checkpoint finishes at ``max_len``).  No host sync: a
+    dropped row writes its last slot's own value back."""
+    slots = cache.shape[1]
+    inside = write < slots
+    at = torch.where(inside, write, slots - 1)
+    keep = inside.view(-1, *([1] * (val.dim() - 1)))
+    cache[rows, at] = torch.where(keep, val.to(cache.dtype), cache[rows, at])
+
+
 def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
                            sin, k_scale=None, v_scale=None, *, window: int = 0,
                            is_ring: bool = False):
@@ -151,15 +165,15 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     if quant:
         kq, ksc = quantize_kv(kr)
         vq, vsc = quantize_kv(v_new)
-        k_cache[rows, write] = kq[:, 0]
-        v_cache[rows, write] = vq[:, 0]
-        k_scale[rows, write] = ksc[:, 0]
-        v_scale[rows, write] = vsc[:, 0]
+        write_slots(k_cache, rows, write, kq[:, 0])
+        write_slots(v_cache, rows, write, vq[:, 0])
+        write_slots(k_scale, rows, write, ksc[:, 0])
+        write_slots(v_scale, rows, write, vsc[:, 0])
         k_full = (k_cache.float() * k_scale).to(q.dtype)
         v_full = (v_cache.float() * v_scale).to(q.dtype)
     else:
-        k_cache[rows, write] = kr[:, 0].to(k_cache.dtype)
-        v_cache[rows, write] = v_new[:, 0].to(v_cache.dtype)
+        write_slots(k_cache, rows, write, kr[:, 0])
+        write_slots(v_cache, rows, write, v_new[:, 0])
         k_full, v_full = k_cache, v_cache
     qg = qr.reshape(b, kh, g, d)                    # K-major head groups
     s = _true_div(torch.einsum("bkgd,bskd->bkgs", qg.float(), k_full.float()),

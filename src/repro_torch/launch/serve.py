@@ -14,6 +14,19 @@ step times of the same run.  Its output is line for line the reference's.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
       --no-reduced --fused-decode --fabric wallclock    # on the card
 
+``--fleet`` serves the trace on a multi-fabric fleet behind the
+model-driven router (DESIGN.md §8): one cluster count per fabric, each
+fabric with its own scaled hardware, Eq.-1 prior and online calibrator,
+timed on the simulated cycle domain; ``--faults`` crashes a lane mid-serve
+and the fleet requeues, restores and re-routes its orphans (DESIGN.md §10):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-execute \
+      --fleet 32,8,8
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 32,8 \
+      --device cpu --requests 8          # one engine per lane
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-execute --pipeline \
+      --fleet 32,8,8 --faults crash@1:0.45 --recovery restore
+
 ``--one-shot`` keeps the single-batch driver (one offline offload decision
 per run):
 
@@ -21,14 +34,12 @@ per run):
       --arch chatglm3-6b --no-reduced --fused-decode
 
 The port's own flags: ``--no-reduced`` serves the full-width, full-depth
-config, ``--device`` picks the card (default ``cuda``) or ``cpu``.  The
-fleet (``--fleet``) is not ported yet (ROADMAP A11) and exits with code 2.
+config, ``--device`` picks the card (default ``cuda``) or ``cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 import numpy as np
 import torch
@@ -162,7 +173,8 @@ def _parse_shed(spec: str | None) -> dict | None:
 
 def build_spec(args):
     """The ONE place argv becomes a ``WorkloadSpec`` (trace shape only —
-    serving knobs go through :func:`build_serve_config`)."""
+    serving knobs go through :func:`build_serve_config` /
+    :func:`build_fleet_config`)."""
     from repro_torch.serve import WorkloadSpec
     return WorkloadSpec(
         num_requests=args.requests,
@@ -194,6 +206,68 @@ def build_serve_config(args, tracer=None, residuals=None):
         affinity=args.affinity, prefix_capacity=args.prefix_capacity,
         priority=args.priority, preempt=args.preempt,
         shed_depth=_parse_shed(args.shed), device=args.device)
+
+
+def build_fleet_config(args, tracer=None, residuals=None):
+    """The ONE place argv becomes a ``FleetConfig`` (``--fleet`` mode)."""
+    from repro_torch.serve import FleetConfig
+    return FleetConfig(
+        fleet=tuple(int(s) for s in args.fleet.split(",") if s),
+        router=args.router, objective=args.router_objective,
+        arch=args.arch, reduced=args.reduced,
+        execute=not args.no_execute, max_batch=args.max_batch,
+        wave_boundary=args.wave_boundary, pipeline=args.pipeline,
+        buffering=args.buffering, dvfs=args.dvfs,
+        tracer=tracer, residuals=residuals,
+        faults=args.faults, fault_seed=args.fault_seed,
+        recovery=args.recovery, tie_seed=args.tie_seed,
+        affinity=args.affinity, prefix_capacity=args.prefix_capacity,
+        priority=args.priority, preempt=args.preempt,
+        shed_depth=_parse_shed(args.shed), device=args.device)
+
+
+def serve_fleet_stream(args) -> dict:
+    """Drive the multi-fabric fleet (DESIGN.md §8) on the open-loop trace."""
+    from repro_torch.serve import serve_fleet
+
+    if args.fabric != "simulated":
+        raise SystemExit(
+            "--fleet serves on the simulated cycle domain only: routing "
+            "scores per-fabric cycle models, which a wallclock fabric does "
+            "not have (drop --fabric wallclock or --fleet)")
+    spec = build_spec(args)
+    tracer, residuals = _make_obs(args)
+    cfg = build_fleet_config(args, tracer, residuals)
+    sizes = cfg.fleet
+    out = serve_fleet(spec, config=cfg)
+    _fault_report(out)
+
+    lane_hist: dict[int, int] = {}
+    guarded = 0
+    for d in out["routes"]:
+        lane_hist[d.lane] = lane_hist.get(d.lane, 0) + 1
+        guarded += d.guarded
+        if args.verbose:
+            scores = ", ".join(f"{s:.0f}" for s in d.scores)
+            print(f"[route] request {d.rid} -> lane {d.lane} "
+                  f"(scores [{scores}], pending {list(d.pending)}"
+                  f"{', guarded' if d.guarded else ''})")
+    print(f"router [{out['router']}] over fleet "
+          f"{'+'.join(map(str, sizes))}: lane histogram "
+          f"{dict(sorted(lane_hist.items()))}, "
+          f"{guarded} work-conserving redirects")
+    print(out["metrics"].format_summary())
+    for snap, size in zip(out["calibrations"], sizes):
+        mape = ("n/a" if snap.window_mape_pct is None
+                else f"{snap.window_mape_pct:.2f}%")
+        e_mape = ("" if snap.energy_mape_pct is None
+                  else f", energy MAPE {snap.energy_mape_pct:.2f}%")
+        print(f"  [{size}c] calibrated: a={snap.alpha:.1f} "
+              f"b={snap.beta:.4f} g={snap.gamma:.4f} "
+              f"({snap.source}, {snap.n_samples} samples, MAPE {mape}"
+              f"{e_mape})")
+    _finish_obs(args, out, tracer, residuals)
+    return out
 
 
 def serve_stream(args) -> dict:
@@ -329,7 +403,8 @@ def main(argv=None):
                     help="serve on a multi-fabric fleet: one cluster count "
                          "per fabric (e.g. 32 / 16,16 / 32,8,8), each with "
                          "its own scaled hardware + calibrated model "
-                         "(DESIGN.md §8); not ported yet (ROADMAP A11)")
+                         "(DESIGN.md §8); with --no-execute off, builds "
+                         "one engine per fabric")
     ap.add_argument("--router", choices=("model", "rr", "lql"),
                     default="model",
                     help="fleet routing policy: model-driven predicted "
@@ -391,7 +466,7 @@ def main(argv=None):
                          "(one event per line, for ad-hoc analysis)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="dump the machine-readable metrics summary() dict "
-                         "as JSON")
+                         "as JSON (single-fabric and fleet)")
     args = ap.parse_args(argv)
 
     if args.one_shot:
@@ -404,9 +479,7 @@ def main(argv=None):
         print("offload decision (Eq.3):", out["offload_decision"])
         return out
     if args.fleet:
-        print("--fleet: fleet serving is not yet ported (ROADMAP A11)",
-              file=sys.stderr)
-        raise SystemExit(2)
+        return serve_fleet_stream(args)
     return serve_stream(args)
 
 

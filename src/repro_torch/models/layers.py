@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   fused_decode_attention,
-                                                  quantize_kv)
+                                                  quantize_kv, write_slots)
 
 from .config import ModelConfig
 
@@ -279,10 +279,10 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
             for name, val in (("k", k), ("v", v)):
                 if quant:
                     qv, sc = quantize_kv(val)
-                    cache[name][rows, write] = qv[:, 0]
-                    cache[f"{name}_scale"][rows, write] = sc[:, 0]
+                    write_slots(cache[name], rows, write, qv[:, 0])
+                    write_slots(cache[f"{name}_scale"], rows, write, sc[:, 0])
                 else:
-                    cache[name][rows, write] = val[:, 0].to(cache[name].dtype)
+                    write_slots(cache[name], rows, write, val[:, 0])
             out = decode_attention(q, load("k"), load("v"), idx + 1,
                                    window=0 if is_ring else window)
         new_cache = dict(cache, len=idx + 1)

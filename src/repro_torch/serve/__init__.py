@@ -25,13 +25,19 @@ generation requests:
     metrics.ServeMetrics         -> throughput / p99 latency / SLO
                                     attainment / queue delay / occupancy /
                                     goodput / prefix hit accounting
+    fleet.FabricFleet            -> N independent fabrics (each with its own
+                                    scaled HWParams, calibrator, scheduler)
+                                    behind a model-driven Router
+                                    (model|rr|lql) with an optional session
+                                    affinity term (DESIGN.md §8)
 
 Everything but the engine is numpy copied from the reference, so with the
 same spec and config the port's admissions, plans, traces and
 ``metrics.summary()`` equal the reference's.  ``serve_workload`` wires the
-single-fabric stack together and takes its knobs as one frozen
-:class:`ServeConfig`.  The fleet (``FleetConfig``, ``serve_fleet``) and the
-co-design explorer (``design=``) are not ported (ROADMAP A11).
+single-fabric stack together; ``serve_fleet`` is its fleet counterpart.
+Each takes its knobs as one frozen config object —
+``serve_workload(spec, config=ServeConfig(...))`` /
+``serve_fleet(spec, config=FleetConfig(...))``.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from repro_torch.runtime.fault import FaultEvent, FaultInjector
 
 from .batcher import (ContinuousBatcher, PendingStep, ServingEngine,
                       model_config)
+from .fleet import (RECOVERY_MODES, ROUTER_OBJECTIVES, ROUTER_POLICIES,
+                    FabricFleet, FleetLane, RouteDecision, Router,
+                    fabric_prior, serve_fleet)
 from .calibrator import CalibrationSnapshot, OnlineCalibrator
 from .fabric import CompletedJob, SimulatedFabric, WallClockFabric
 from .metrics import FleetMetrics, ServeMetrics
@@ -57,13 +66,16 @@ from .workload import (ARRIVALS, CYCLES_PER_SECOND, LENGTH_DISTS,
 __all__ = [
     "AdmissionDecision", "ARRIVALS", "BatchPlan", "CalibrationSnapshot",
     "CompletedJob", "ContinuousBatcher", "CYCLES_PER_SECOND",
-    "DEFAULT_CAPACITY_TOKENS", "FaultEvent", "FaultInjector",
-    "FleetMetrics", "LENGTH_DISTS", "OffloadAwareScheduler",
-    "OnlineCalibrator", "PendingStep", "PrefixStore", "Request",
-    "RequestQueue", "RequestState", "ServeConfig", "ServeMetrics",
-    "ServingEngine", "SimulatedFabric", "TenantClass", "TENANT_CLASSES",
-    "WallClockFabric", "Workload", "WORKLOADS", "WorkloadSpec",
-    "derive_seed", "serve_workload", "synthetic_workload", "workload_for",
+    "DEFAULT_CAPACITY_TOKENS", "FabricFleet", "FaultEvent",
+    "FaultInjector", "FleetConfig", "FleetLane", "FleetMetrics",
+    "LENGTH_DISTS", "OffloadAwareScheduler",
+    "OnlineCalibrator", "PendingStep", "PrefixStore", "RECOVERY_MODES",
+    "Request", "RequestQueue", "RequestState", "ROUTER_OBJECTIVES",
+    "ROUTER_POLICIES", "RouteDecision", "Router", "ServeConfig",
+    "ServeMetrics", "ServingEngine", "SimulatedFabric", "TenantClass",
+    "TENANT_CLASSES", "WallClockFabric", "Workload", "WORKLOADS",
+    "WorkloadSpec", "derive_seed", "fabric_prior",
+    "serve_fleet", "serve_workload", "synthetic_workload", "workload_for",
 ]
 
 
@@ -77,9 +89,8 @@ class ServeConfig:
     parameter tree for the engine (e.g. the reference's, carried across by
     ``models.convert``) in place of the seeded random weights.  ``arch``
     may also be a ``ModelConfig`` (e.g. one with its depth cut).
-    ``mesh_shape`` must be ``(1, 1)`` and ``design`` None: the multi-device
-    layers (ROADMAP A12) and the co-design explorer (ROADMAP A11) are not
-    ported.
+    ``mesh_shape`` must be ``(1, 1)``: the multi-device layers are not
+    ported yet (ROADMAP A12).
     """
 
     arch: str = "chatglm3-6b"
@@ -112,8 +123,52 @@ class ServeConfig:
     params: object = None
 
 
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Every knob of the fleet serving stack (:func:`serve_fleet`).
+
+    The reference's fields, names and defaults, and the same two of the
+    port's own as :class:`ServeConfig`: ``device`` (``"cuda"``, the
+    default, or ``"cpu"``, resolved only when ``execute=True``) is where
+    every lane's engine runs, and ``params`` is one port parameter tree
+    that every lane's engine reads (``None``: each lane draws its own
+    seeded weights, as in the reference).  ``mesh_shape`` must be
+    ``(1, 1)``.
+    """
+
+    fleet: tuple = (32,)                        # cluster count per fabric
+    router: str = "model"
+    objective: str = "latency"
+    arch: str = "chatglm3-6b"
+    reduced: bool = True
+    execute: bool = False
+    max_batch: int = 4
+    mesh_shape: tuple = (1, 1)
+    jitter_pct: float = 1.0
+    wave_boundary: bool = False
+    pipeline: bool = False
+    buffering: str | None = None
+    dvfs: object = None
+    tracer: object = None
+    residuals: object = None
+    faults: object = None
+    fault_seed: int | None = None
+    recovery: str = "restore"
+    ckpt_every: int = 4
+    tie_seed: int | None = None
+    # --- session affinity + tenant classes (DESIGN.md §13) ---
+    affinity: bool = False                      # router affinity term + hits
+    prefix_capacity: int = DEFAULT_CAPACITY_TOKENS
+    priority: bool = False
+    preempt: bool = False
+    shed_depth: dict | None = None
+    # --- the port's own ---
+    device: str = "cuda"
+    params: object = None
+
+
 def _config_from_kwargs(config, cls, kwargs: dict, fn_name: str):
-    """The deprecation shim behind the serving entry point.
+    """The deprecation shim behind both serving entry points.
 
     Legacy keyword call sites keep working — each kwarg overrides the
     matching config field via ``dataclasses.replace``, so the result is
@@ -163,6 +218,13 @@ def serve_workload(
     model) or ``"wallclock"`` (the engine's measured step times — needs
     ``execute=True``; the calibrator then tracks the live host and card).
 
+    ``design`` serves a swept co-design point
+    (``repro_torch.dse.DesignPoint``) instead of the paper's extended
+    design: the simulated fabric runs that design's hardware, dispatch,
+    sync and kernel, and — unless an explicit ``calibrator`` is passed —
+    the scheduler's prior becomes the design's own Eq.-1 refit rather than
+    ``PAPER_MODEL`` (DESIGN.md §3.4).  The engine, if any, is the same.
+
     ``tracer`` (a :class:`repro_torch.obs.Tracer`) records the run as
     structured spans and ``residuals`` (a
     :class:`repro_torch.obs.ResidualTracker`) pairs every prediction with
@@ -170,10 +232,6 @@ def serve_workload(
     ``shed_depth`` are the session-affinity/tenant layer, default-off.
     """
     cfg = _config_from_kwargs(config, ServeConfig, kwargs, "serve_workload")
-    if cfg.design is not None:
-        raise NotImplementedError(
-            "design= serves a swept co-design point, and the design-space "
-            "explorer is not ported yet (ROADMAP A11)")
     if tuple(cfg.mesh_shape) != (1, 1):
         raise ValueError(
             f"mesh_shape={cfg.mesh_shape!r}: the port serves on one device; "
@@ -181,19 +239,43 @@ def serve_workload(
     spec = spec or WorkloadSpec()
     calibrator = cfg.calibrator
     buffering = cfg.buffering
+    if cfg.design is not None and cfg.fabric != "simulated":
+        raise ValueError("design= requires the simulated fabric")
     if buffering is None:
-        buffering = "double" if cfg.pipeline else "single"
+        buffering = (getattr(cfg.design, "buffering", None)
+                     or ("double" if cfg.pipeline else "single"))
     if calibrator is None:
-        calibrator = OnlineCalibrator()
+        if cfg.design is not None:
+            from repro_torch.dse.runner import refit_design
+            prior, _ = refit_design(cfg.design, force_eq1=True)
+            calibrator = OnlineCalibrator(prior=prior)
+        else:
+            calibrator = OnlineCalibrator()
     if cfg.fabric == "simulated":
-        # The fabric is sized to the configured extent grid: interconnect
-        # parameters scale with the cluster count (simulator.scaled_hw;
-        # identity at the paper's 32-cluster reference).
-        fabric_src = SimulatedFabric(jitter_pct=cfg.jitter_pct,
-                                     seed=spec.seed,
-                                     num_clusters=max(cfg.available_m),
-                                     buffering=buffering, dvfs=cfg.dvfs)
-        host_model = None  # Manticore host fallback (same cycle domain)
+        if cfg.design is not None:
+            fabric_src = SimulatedFabric.for_design(cfg.design,
+                                                    jitter_pct=cfg.jitter_pct,
+                                                    seed=spec.seed)
+            if buffering != fabric_src.buffering or cfg.dvfs is not None:
+                fabric_src = SimulatedFabric(
+                    hw=fabric_src.hw, kernel=fabric_src.kernel,
+                    dispatch=fabric_src.dispatch, sync=fabric_src.sync,
+                    jitter_pct=cfg.jitter_pct, seed=spec.seed,
+                    buffering=buffering, dvfs=cfg.dvfs)
+            # Plan host fallbacks against the design's own hardware/kernel.
+            from repro_torch.core import simulator as _sim
+            host_model = lambda n: float(_sim.host_runtime(  # noqa: E731
+                n, hw=fabric_src.hw, kernel=fabric_src.kernel))
+        else:
+            # The fabric is sized to the configured extent grid:
+            # interconnect parameters scale with the cluster count
+            # (simulator.scaled_hw; identity at the paper's 32-cluster
+            # reference).
+            fabric_src = SimulatedFabric(jitter_pct=cfg.jitter_pct,
+                                         seed=spec.seed,
+                                         num_clusters=max(cfg.available_m),
+                                         buffering=buffering, dvfs=cfg.dvfs)
+            host_model = None  # Manticore host fallback (same cycle domain)
     elif cfg.fabric == "wallclock":
         if not cfg.execute:
             raise ValueError("fabric='wallclock' needs execute=True: the "

@@ -16,6 +16,7 @@ tests/test_torch_kernels_cuda.py.
 """
 
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +25,13 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels.fused_adamw import pack_hparams as ref_pack_hparams
-from repro_torch.kernels import daxpy as DX
 from repro_torch.kernels import fused_adamw as FA
 from repro_torch.kernels import ops
 from repro_torch.models.convert import params_from_numpy
+
+# The package's ``daxpy`` is the exported function (as in the
+# reference); the module holds the plain version.
+DX = importlib.import_module("repro_torch.kernels.daxpy")
 
 SHAPES = [(5,), (128,), (1000,), (8, 128), (3, 7, 11), (256, 256), (1, 1)]
 DTYPES = ["f32", "bf16"]

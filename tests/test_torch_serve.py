@@ -85,8 +85,8 @@ def test_one_shot_default_prompts_are_seeded():
 
 
 def test_cli_one_shot_and_unported_streaming(capsys):
-    """The one-shot CLI, the ported streaming CLI, and the fleet mode that
-    is still unported (ROADMAP A11)."""
+    """The one-shot CLI, the streaming CLI, and its fleet mode with one
+    engine per lane (the name predates the fleet's port)."""
     out = main(["--one-shot", "--arch", ARCH, "--prompts", "2",
                 "--prompt-len", "4", "--gen", "2", "--device", "cpu"])
     assert out["generated"].shape == (2, 2)
@@ -94,10 +94,11 @@ def test_cli_one_shot_and_unported_streaming(capsys):
     out = main(["--arch", ARCH, "--device", "cpu", "--requests", "3"])
     assert out["metrics"].submitted == 3
     assert "calibrated model" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as exc:
-        main(["--arch", ARCH, "--device", "cpu", "--fleet", "32,8"])
-    assert exc.value.code == 2
-    assert "not yet ported (ROADMAP A11)" in capsys.readouterr().err
+    out = main(["--arch", ARCH, "--device", "cpu", "--fleet", "32,8",
+                "--requests", "3"])
+    assert out["metrics"].summary()["submitted"] == 3
+    assert all(lane.engine.device == CPU for lane in out["fleet"].lanes)
+    assert "router [model] over fleet 32+8" in capsys.readouterr().out
 
 
 # --------------------------------------------------------------------------- #

@@ -10,7 +10,8 @@
     the reference's summary, schedule and tokens;
   * the discrete-event ``OffloadEngine`` and ``fit_pipelined_from_engine``
     are bit-identical to the reference's;
-  * the streaming CLI prints what the reference's prints;
+  * the streaming CLI prints what the reference's prints, and so does its
+    ``--fleet`` mode;
   * the port's serving modules import neither ``jax`` nor ``repro``.
 """
 
@@ -124,10 +125,23 @@ def test_no_execute_never_touches_a_device():
 
 
 def test_unported_options_raise():
+    from repro.dse import DesignPoint as RefDesignPoint
+    from repro_torch.dse import DesignPoint
+
     with pytest.raises(ValueError, match="ROADMAP A12"):
         serve_workload(config=ServeConfig(execute=False, mesh_shape=(2, 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        serve_workload(config=ServeConfig(execute=False, design=object()))
+    # A swept design point is served on the simulated fabric only, with the
+    # reference's error.
+    with pytest.raises(ValueError) as ref_exc:
+        ref_serve_workload(config=RefServeConfig(
+            execute=False, fabric="wallclock",
+            design=RefDesignPoint(dispatch="multicast", sync="credit")))
+    with pytest.raises(ValueError) as exc:
+        serve_workload(config=ServeConfig(
+            execute=False, fabric="wallclock",
+            design=DesignPoint(dispatch="multicast", sync="credit")))
+    assert str(exc.value) == str(ref_exc.value) == \
+        "design= requires the simulated fabric"
     with pytest.raises(ValueError, match="needs execute=True"):
         serve_workload(config=ServeConfig(execute=False, fabric="wallclock"))
 
@@ -371,11 +385,14 @@ def test_cli_no_execute_prints_reference_output(capsys, extra):
     assert "calibrated model" in got
 
 
-def test_cli_fleet_is_not_ported(capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["--no-execute", "--fleet", "32,8"])
-    assert exc.value.code == 2
-    assert "not yet ported (ROADMAP A11)" in capsys.readouterr().err
+def test_cli_fleet_prints_reference_output(capsys):
+    argv = ["--no-execute", "--fleet", "32,8"]
+    ref_main(argv)
+    want = capsys.readouterr().out
+    main(argv)
+    got = capsys.readouterr().out
+    assert got == want
+    assert "router [model] over fleet 32+8" in got
 
 
 def test_cli_streaming_on_cpu_with_the_engine(capsys, tmp_path):
@@ -395,7 +412,9 @@ def test_cli_streaming_on_cpu_with_the_engine(capsys, tmp_path):
 def test_port_serving_modules_import_no_jax_and_no_reference():
     code = ("import sys\n"
             "import repro_torch.serve, repro_torch.obs, "
-            "repro_torch.launch.serve, repro_torch.core\n"
+            "repro_torch.launch.serve, repro_torch.core, repro_torch.dse, "
+            "repro_torch.serve.fleet, repro_torch.launch.dse, "
+            "repro_torch.kernels.ref\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
