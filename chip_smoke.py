@@ -92,7 +92,23 @@ printing a result:
      dropped completed, no decode-kernel launch; at 4 layers in f32, how
      many of the chaos runs' token streams equal the fault-free run's (a
      finding, not a gate);
- 12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+ 12. the multi-device and analysis layers: the planner's host overheads
+     (an empty step's queue-plus-credit time, a sequential put's extra
+     leaf) and one 4 x 1024 prefill job timed; then an NCCL process group
+     of one rank, and chatglm3-6b at full width served through a 1x1
+     ``DeviceMesh`` (``serve_workload`` given ``make_host_mesh(1, 1)``, on
+     the stream trace's first 16 requests: DTensor params and caches, the
+     fused kernel on local, slot-complete cache rows): counts, launches (28
+     per decode step), credits, its decode step profiled beside phase 7's;
+     the trace at 4 layers f32 through the mesh, token for token the plain
+     path's; ``H100_SXM``'s predicted decode and prefill times beside the
+     measured ones; and the dry runs, started as CPU processes after the build
+     (chatglm3-6b and qwen3-moe-235b-a22b x decode_32k on 16x16,
+     qwen3-moe-235b-a22b x train_4k on 2x16x16, and phase 7's streaming
+     decode step on a 1x1 mesh, held against the mesh serve's measured
+     peak memory): per-device peak against 80 GiB, FLOPs against
+     ``cell_cost``, the collective census;
+ 13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one card.  Without one (``torch.cuda.is_available()`` false), or
 without the ``src/repro_torch`` package beside it, it exits non-zero at
@@ -202,6 +218,17 @@ CHAOS_TRAFFIC = dict(rate_rps=1.5e6, slo_fraction=0.5, seed=11)
 CHAOS_FAULTS = "crash@1:0.45"
 RESTORE_REQUESTS, RESTORE_FAULTS = 96, "crash@1:0.6"
 FLEET_CHECK_LAYERS = 4
+# The multi-device and analysis layers (phase 12): the stream trace's first
+# MESH_REQUESTS requests served through a 1x1 DeviceMesh; the empty step
+# timed LAUNCH_REPS times for the planner's host overheads; the dry-run
+# cells (arch, shape, multi-pod), each a CPU process started after the
+# build and waited for at most DRYRUN_TIMEOUT_S in phase 12.
+MESH_REQUESTS = 16
+LAUNCH_REPS = 200
+DRYRUN_CELLS = [("chatglm3-6b", "decode_32k", False),
+                ("qwen3-moe-235b-a22b", "decode_32k", False),
+                ("qwen3-moe-235b-a22b", "train_4k", True)]
+DRYRUN_TIMEOUT_S = 600
 # The archs whose engine steps are queued under the sync debug mode.
 NO_SYNC_ARCHS = (ARCH, MOE_ARCH, HYBRID_ARCH)
 # daxpy: the shapes and dtypes of tests/test_kernels.py, and the sizes the
@@ -532,12 +559,14 @@ def gib(nbytes: float) -> str:
 
 
 def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
-                 requests: int = STREAM_REQUESTS) -> dict:
+                 requests: int = STREAM_REQUESTS, mesh=None,
+                 tag: str = "stream") -> dict:
     """The streaming path at full width: ``serve_workload`` with the CLI's
     defaults (its first ``requests`` requests) on the wall-clock fabric,
     fused decode on; ``pipeline`` runs the pipelined loop instead of the
-    continuous one.  The decode kernel must launch once per attention
-    layer for every decode job and warm-up decode."""
+    continuous one; ``mesh`` (a ``DeviceMesh``) goes to the engine.  The
+    decode kernel must launch once per attention layer for every decode
+    job and warm-up decode."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import credit_threshold
@@ -556,7 +585,9 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         t0 = time.perf_counter()
         out = serve_workload(stream_spec(requests), config=ServeConfig(
             arch=arch, reduced=False, fused_decode=True, fabric="wallclock",
-            pipeline=pipeline, device=dev, tracer=tracer))
+            pipeline=pipeline, device=dev, tracer=tracer,
+            mesh_shape=(1, 1) if mesh is None else tuple(mesh.shape),
+            mesh=mesh))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = DA.LAUNCHES
@@ -622,7 +653,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "serve_wall_s": wall}
     card = card_line()
-    log(f"[stream] {card}: {arch} full width ({cfg.num_layers} layers, "
+    log(f"[{tag}] {card}: {arch} full width ({cfg.num_layers} layers, "
         f"{cfg.param_count()} params, {cfg.dtype}), {requests} requests at "
         f"{STREAM_RATE:g} req/s (seed {STREAM_SEED}), wall-clock fabric, "
         f"{loop} loop, fused decode, max_len {res['max_len']}; "
@@ -630,12 +661,12 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     kernel = (f"kernel launches {launches} == {n_attn} x ({m.decode_jobs} + "
               f"{n_lengths} warm-up)" if n_attn else
               f"no attention layer, so no decode-kernel launch ({launches})")
-    log(f"[stream] {card}: admitted {m.admitted}, rejected {m.rejected}, "
+    log(f"[{tag}] {card}: admitted {m.admitted}, rejected {m.rejected}, "
         f"completed {m.completed}; prefill jobs {m.prefill_jobs}, decode "
         f"jobs {m.decode_jobs}; {kernel}; "
         f"credit reads {len(reads)}/{n_reads} at threshold; "
         f"{m.pipelined_prefills} pipelined prefills")
-    log(f"[stream] {card}: decode {decode_tokens} tokens in {decode_s:.4f} "
+    log(f"[{tag}] {card}: decode {decode_tokens} tokens in {decode_s:.4f} "
         f"s of decode-step wall = {res['decode_tok_s']:.1f} tok/s "
         f"({res['decode_rows_tok_s']:.1f} counting all 4 rows); prefill "
         f"jobs {prefill_s:.4f} s; step p50 "
@@ -643,7 +674,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         f"{res['latency_p50_s']:.4f} s, p99 {res['latency_p99_s']:.4f} s; "
         f"slot occupancy {res['slot_occupancy_mean']:.3f}")
     mape = snap.window_mape_pct
-    log(f"[stream] {card}: calibrated [{snap.source}, {snap.n_samples} "
+    log(f"[{tag}] {card}: calibrated [{snap.source}, {snap.n_samples} "
         f"samples]: alpha {snap.alpha:.1f} beta {snap.beta:.4f} gamma "
         f"{snap.gamma:.4f} (cycles = ns), window MAPE "
         f"{'n/a' if mape is None else f'{mape:.2f}%'}; max_memory_allocated "
@@ -1287,7 +1318,7 @@ def weight_bound(params, cfg) -> dict:
 
 
 def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
-                  lens=None, tag="profile", arch=ARCH) -> dict:
+                  lens=None, tag="profile", arch=ARCH, mesh=None) -> dict:
     """Where a full-width decode step's time goes: host wall per step vs
     device time by kernel kind (torch.profiler over a few warm steps),
     beside the least time the step's weight reads take.
@@ -1302,7 +1333,9 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
     from repro_torch.serve.batcher import ServingEngine
 
     eng = ServingEngine(arch, reduced=False, max_batch=4, max_len=max_len,
-                        fused_decode=True, device=dev)
+                        fused_decode=True, device=dev, mesh=mesh,
+                        mesh_shape=(1, 1) if mesh is None
+                        else tuple(mesh.shape))
     wb = weight_bound(eng.params, eng.cfg)
     prompt = np.random.default_rng(1).integers(
         0, eng.cfg.vocab_size, (4, prompt_len), dtype=np.int32)
@@ -1884,6 +1917,298 @@ def phase_optimizer_paths(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# 12. The multi-device and analysis layers
+# --------------------------------------------------------------------------- #
+def start_dry_runs() -> list:
+    """Start the dry runs, one CPU process each (niced, one thread, no
+    card), so they run beside the card's phases: the production cells of
+    DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``, and the
+    streaming decode step of phase 7 (chatglm3-6b, B=4, S = the trace's
+    max_len, fused) on a 1x1 mesh.  Returns [(name, Popen, record path)]."""
+    import os
+    out = REPO / "results" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    runs = []
+
+    def start(name, cmd, path):
+        if path.exists():
+            path.unlink()
+        log_file = open(out / f"{name}.log", "w")
+        proc = subprocess.Popen(cmd, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT, cwd=REPO,
+                                preexec_fn=lambda: os.nice(19))
+        runs.append((name, proc, path))
+
+    for arch, shape, multi in DRYRUN_CELLS:
+        mesh = "multi" if multi else "single"
+        start(f"{arch}__{shape}__{mesh}",
+              [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+              out / f"{arch}__{shape}__{mesh}.json")
+    s = stream_max_len()
+    path = out / f"{ARCH}__stream_decode__1x1.json"
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch.dryrun import run_step\n"
+        "from repro_torch.models import init_cache\n"
+        f"cfg = get_config({ARCH!r})\n"
+        "meta = lambda shape: torch.empty(shape, dtype=torch.int32, "
+        "device='meta')\n"
+        f"specs = {{'tokens': meta((4, 1)), 'caches': init_cache(cfg, 4, "
+        f"max_len={s}, device='meta'), 'cache_len': meta((4,))}}\n"
+        "rec = run_step(cfg, 'decode_32k', specs, (1, 1), fused=True)\n"
+        f"rec.update(arch={ARCH!r}, shape='B=4, S={s}, fused decode', "
+        "mesh='1x1', ok=True)\n"
+        "open(sys.argv[1], 'w').write(json.dumps(rec, indent=1))\n")
+    start(f"{ARCH}__stream_decode__1x1", [sys.executable, "-c", code,
+                                           str(path)], path)
+    return runs
+
+
+def finish_dry_runs(runs, mesh_peak: int) -> dict:
+    """Wait for the dry runs and report each record: per-device peak
+    against the card's 80 GiB, FLOPs against ``cell_cost``, the collective
+    census; the 1x1 streaming decode step's peak against the mesh serve's
+    measured ``max_memory_allocated``.  A cell that failed fails the
+    phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import config_for_shape
+    from repro_torch.core.planner import H100_SXM
+    from repro_torch.runtime.analytics import cell_cost
+
+    recs = {}
+    for name, proc, path in runs:
+        t0 = time.perf_counter()
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        if rc != 0 or not path.exists():
+            raise AssertionError(f"dry run {name}: exit {rc}, see "
+                                 f"results/dryrun/{name}.log")
+        rec = json.loads(path.read_text())
+        if not rec.get("ok"):
+            raise AssertionError(f"dry run {name} failed: {rec.get('error')}")
+        recs[name] = rec
+        mem, cost = rec["memory"], rec["cost_analysis"]
+        if name.endswith("__1x1"):
+            cfg = get_config(ARCH)
+            log(f"[dryrun] {name} ({rec['shape']}, fake 1x1 mesh): "
+                f"arguments {gib(mem['argument_bytes'])} + temporaries "
+                f"{gib(mem['temp_bytes'])} = peak {gib(mem['peak_bytes'])} "
+                f"per device, against the mesh serve's measured "
+                f"max_memory_allocated {gib(mesh_peak)} (which holds its "
+                f"prefill jobs too); FLOPs {cost['flops']:.4e}")
+            rec["measured_max_memory_allocated"] = mesh_peak
+            continue
+        cfg = config_for_shape(get_config(rec["arch"]), rec["shape"],
+                               num_shards=rec["devices"])
+        want = cell_cost(cfg, rec["shape"]).flops
+        fits = mem["peak_bytes"] <= H100_SXM.hbm_bytes
+        log(f"[dryrun] {name} on {rec['mesh']} ({rec['devices']} fake "
+            f"ranks; ran {rec['compile_s']} s, waited "
+            f"{time.perf_counter() - t0:.1f} s): per-device peak "
+            f"{gib(mem['peak_bytes'])} ({'fits' if fits else 'exceeds'} "
+            f"80 GiB; arguments {gib(mem['argument_bytes'])}, temporaries "
+            f"{gib(mem['temp_bytes'])}); FLOPs {cost['flops']:.4e} = "
+            f"{cost['flops'] / want:.3f} x cell_cost's {want:.4e}; "
+            f"collectives per device "
+            f"{rec['collectives']['per_device_bytes_total'] / 2**30:.2f} GiB"
+            f" in {rec['collectives']['num_ops']} ops")
+        for op in rec["collectives"]["ops_summary"]:
+            log(f"[dryrun]   {op['kind']:15s} group {op['group_size']:3d}: "
+                f"{op['count']:6d} ops, {op['bytes'] / 2**30:.3f} GiB")
+        rec["cell_cost_flops"] = want
+    return recs
+
+
+def measure_step_launch(dev) -> dict:
+    """The planner's host overheads on this card: the median
+    queue-plus-credit time of an empty step (one int32 token placed by
+    ``MulticastDispatcher.timed_put``, its credit emitted and read by
+    ``CreditCounterSync.timed_wait``), and the median extra time of a
+    ``SequentialDispatcher`` put per added leaf (one more host
+    transaction)."""
+    import numpy as np
+    from repro_torch.core.dispatch import (MulticastDispatcher,
+                                           SequentialDispatcher)
+    from repro_torch.core.sync import CreditCounterSync, emit_credits
+
+    multi, seq, sync = (MulticastDispatcher(), SequentialDispatcher(),
+                        CreditCounterSync())
+    tok = np.zeros((1, 1), np.int32)
+    launch, one, two = [], [], []
+    for i in range(LAUNCH_REPS + 20):
+        t0 = time.perf_counter()
+        placed, _ = multi.timed_put(tok, dev)
+        sync.timed_wait(emit_credits({"t": placed.float()}))
+        launch.append(time.perf_counter() - t0)
+        one.append(seq.timed_put((tok,), dev)[1].seconds)
+        two.append(seq.timed_put((tok, tok), dev)[1].seconds)
+    step = statistics.median(launch[20:])
+    per_dev = statistics.median(b - a for a, b in zip(one[20:], two[20:]))
+    return {"step_launch_s": step, "per_device_dispatch_s": per_dev,
+            "reps": LAUNCH_REPS}
+
+
+def time_prefill(dev, reps: int = 3) -> float:
+    """Median seconds of one 4 x 1024 prefill job of chatglm3-6b at full
+    width on the plain path (placement, queueing, credit wait)."""
+    import numpy as np
+    from repro_torch.serve.batcher import ServingEngine
+    eng = ServingEngine(ARCH, reduced=False, max_batch=4, max_len=1040,
+                        fused_decode=True, device=dev)
+    prompt = np.random.default_rng(2).integers(
+        0, eng.cfg.vocab_size, (4, 1024), dtype=np.int32)
+    eng.prefill(prompt)      # warm
+    walls = [eng.prefill(prompt)[2] for _ in range(reps)]
+    del eng
+    return statistics.median(walls)
+
+
+def planner_vs_card(results, launch: dict, prefill_s: float) -> dict:
+    """``H100_SXM``'s step time for the streaming decode step (B=4, S =
+    the trace's max_len) and for one 4 x 1024 prefill job, beside the
+    measured ones: FLOPs from ``forward_flops``, bytes the weights (all
+    but the embedding table, of which a step gathers rows) and the KV
+    caches each job reads or writes."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import H100_SXM, JobStats, roofline
+    from repro_torch.core.planner import step_time
+    from repro_torch.runtime.analytics import forward_flops
+
+    cfg = get_config(ARCH)
+    weights = 2 * (cfg.param_count() - cfg.vocab_padded * cfg.d_model)
+
+    def kv(s):
+        return (cfg.num_layers * 2 * 4 * s * cfg.num_kv_heads
+                * cfg.qk_head_dim * 2)
+
+    s = stream_max_len()
+    measured = dc.replace(H100_SXM, **{k: launch[k] for k in
+                                       ("step_launch_s",
+                                        "per_device_dispatch_s")})
+    prof = results["stream_profile"]
+    mesh_prof = results["mesh"]["profile"]
+    jobs = {
+        "decode": (JobStats("decode", forward_flops(
+            cfg, 4, 1, decode=True, cache_len=s), weights + kv(s)),
+            {"plain device busy": prof["device_busy_ms_per_step"] / 1e3,
+             "plain host wall": prof["step_wall_ms_median"] / 1e3,
+             "mesh device busy":
+                 mesh_prof["device_busy_ms_per_step"] / 1e3,
+             "mesh host wall": mesh_prof["step_wall_ms_median"] / 1e3}),
+        "prefill": (JobStats("prefill", forward_flops(cfg, 4, 1024),
+                             weights + kv(1024)),
+                    {"plain job wall": prefill_s})}
+    out = {}
+    for name, (stats, seen) in jobs.items():
+        terms = roofline(stats, 1, H100_SXM)
+        pred = step_time(stats, 1, H100_SXM)
+        pred_m = step_time(stats, 1, measured)
+        out[name] = {"flops": stats.flops, "hbm_bytes": stats.hbm_bytes,
+                     "t_compute_s": terms.t_compute,
+                     "t_memory_s": terms.t_memory,
+                     "dominant": terms.dominant, "predicted_s": pred,
+                     "predicted_with_measured_launch_s": pred_m,
+                     "measured_s": seen}
+        log(f"[planner] {card_line()}: {ARCH} {name} job: "
+            f"{stats.flops:.4e} FLOPs, {stats.hbm_bytes} B -> compute "
+            f"{terms.t_compute * 1e3:.4f} ms, memory "
+            f"{terms.t_memory * 1e3:.4f} ms ({terms.dominant}-bound); "
+            f"H100_SXM predicts {pred * 1e3:.4f} ms "
+            f"({pred_m * 1e3:.4f} with this run's launch); measured "
+            + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in seen.items()))
+    log(f"[planner] {card_line()}: step_launch_s "
+        f"{launch['step_launch_s'] * 1e6:.2f} us, per_device_dispatch_s "
+        f"{launch['per_device_dispatch_s'] * 1e6:.2f} us (median of "
+        f"{launch['reps']}; the committed H100_SXM holds "
+        f"{H100_SXM.step_launch_s * 1e6:.2f} and "
+        f"{H100_SXM.per_device_dispatch_s * 1e6:.2f} us)")
+    return out
+
+
+def _token_streams(dev, params, cfg, mesh=None) -> dict:
+    from repro_torch.serve import RequestState, ServeConfig, serve_workload
+    out = serve_workload(stream_spec(), config=ServeConfig(
+        arch=cfg, reduced=False, fused_decode=True, fabric="simulated",
+        device=dev, params=params, mesh=mesh,
+        mesh_shape=(1, 1) if mesh is None else tuple(mesh.shape)))
+    return {r.rid: r.generated.tolist() for r in out["requests"]
+            if r.state is RequestState.DONE}
+
+
+def phase_mesh(dev, results) -> dict:
+    """chatglm3-6b served through a ``DeviceMesh``: an NCCL group of one
+    rank, ``serve_workload(mesh=make_host_mesh(1, 1))`` on the stream
+    trace's first MESH_REQUESTS requests at full width (DTensor params and
+    caches, the fused kernel on each device's local, slot-complete cache
+    rows), its decode step profiled beside phase 7's, and the trace at 4 layers f32
+    on the simulated fabric with the mesh, token for token the plain
+    path's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import layers
+
+    cfg4 = replace(get_config(ARCH), num_layers=STREAM_CHECK_LAYERS,
+                   dtype="float32")
+    params4 = init_params(cfg4, seed=0, device=dev)
+    plain = _token_streams(dev, params4, cfg4)
+    store = REPO / "results" / "nccl_store"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            rank=0, world_size=1,
+                            store=dist.FileStore(str(store), 1))
+    calls = []
+    inner = layers._on_batch_shards
+    layers._on_batch_shards = lambda *a, **k: (calls.append(1),
+                                               inner(*a, **k))[1]
+    try:
+        mesh = make_host_mesh(1, 1)
+        res = {"backend": dist.get_backend(),
+               "serve": phase_stream(dev, requests=MESH_REQUESTS, mesh=mesh,
+                                     tag="mesh")}
+        if not calls:
+            raise AssertionError("the mesh serve never took the mesh's "
+                                 "decode path")
+        res["mesh_decode_calls"] = len(calls)
+        s_len = results["stream"]["max_len"]
+        res["profile"] = phase_profile(
+            dev, max_len=s_len, prompt_len=256,
+            lens=[256, 511, 767, s_len - 17], tag="mesh-profile", mesh=mesh)
+        meshed = _token_streams(dev, params4, cfg4, mesh=mesh)
+    finally:
+        layers._on_batch_shards = inner
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    bad = [rid for rid in plain if meshed.get(rid) != plain[rid]]
+    if bad or meshed.keys() != plain.keys() or not plain:
+        raise AssertionError(f"mesh and plain token streams differ for "
+                             f"requests {bad}")
+    res["tokens_equal"] = {"requests": len(plain),
+                           "tokens": sum(map(len, plain.values()))}
+    pp, mp = results["stream_profile"], res["profile"]
+    log(f"[mesh] {card_line()}: 4 layers f32, simulated fabric: mesh and "
+        f"plain token streams equal for {len(plain)} requests "
+        f"({res['tokens_equal']['tokens']} tokens)")
+    log(f"[mesh] {card_line()}: decode step at S={results['stream']['max_len']}"
+        f": plain host {pp['step_wall_ms_median']:.3f} ms / device busy "
+        f"{pp['device_busy_ms_per_step']:.3f} ms (phase 7), mesh host "
+        f"{mp['step_wall_ms_median']:.3f} ms / device busy "
+        f"{mp['device_busy_ms_per_step']:.3f} ms")
+    del params4
+    return res
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: no src/repro_torch beside this script",
@@ -1896,11 +2221,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import decode_attention as DA
-
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
 
     # 1. Card.
     t_start = time.perf_counter()
@@ -1921,6 +2241,28 @@ def main() -> int:
     results["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(_build.SOURCES)} kernel source(s) in "
         f"{results['build_s']:.1f} s")
+    # Phase 12's dry runs: CPU processes beside the card's phases.
+    dry_runs = start_dry_runs()
+    try:
+        return run_phases(dev, results, dry_runs, t_start)
+    finally:
+        for _, proc, _ in dry_runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(dev, results, dry_runs, t_start) -> int:
+    """Phases 3 to 13 (see the module docstring)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as DA
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    card = results["card"]
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -2074,6 +2416,23 @@ def main() -> int:
     log(f"[fleet] memory_allocated after the phase "
         f"{gib(torch.cuda.memory_allocated(dev))}; phase "
         f"{results['fleet_phase_s']:.1f} s")
+
+    # 12. The multi-device and analysis layers: the planner's host
+    # overheads and a prefill job timed, chatglm3-6b through a DeviceMesh
+    # (its launches counted from 0), the planner against the card, and the
+    # dry runs' records.
+    t0 = time.perf_counter()
+    launch = measure_step_launch(dev)
+    prefill_s = time_prefill(dev)
+    free()
+    results["mesh"] = phase_mesh(dev, results)
+    free()
+    results["planner"] = planner_vs_card(results, launch, prefill_s)
+    results["planner"]["launch"] = launch
+    results["dryrun"] = finish_dry_runs(
+        dry_runs, results["mesh"]["serve"]["max_memory_allocated"])
+    results["mesh_phase_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase {results['mesh_phase_s']:.1f} s")
     results["total_s"] = time.perf_counter() - t_start
 
     dx = results["daxpy_timing"][-1]            # n = 2^27, f32
@@ -2088,6 +2447,7 @@ def main() -> int:
          "library_ms": None,
          "stream_launches": results["stream"]["launches"],
          "design_launches": results["design_point"]["launches"],
+         "mesh_launches": results["mesh"]["serve"]["launches"],
          "fleet_launches": sum(results["fleet"][t]["launches"]
                                for t in ("fleet", "fleet-chaos",
                                          "fleet-restore")),

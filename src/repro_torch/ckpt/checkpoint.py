@@ -14,6 +14,14 @@ other wrote:
     to the host first, so training proceeds while the write happens) and
     keeps the last N checkpoints.
 
+A tree of DTensors (placed over a ``DeviceMesh``) is saved whole: each
+leaf is gathered on every rank and rank 0 writes the files.  A restore in
+a process group first meets every rank at a barrier (so rank 0's writes
+have ended) and reads the step rank 0 chose, so every rank restores the
+same checkpoint.  Restoring with ``mesh=`` places each leaf by a spec
+tree on that mesh, whatever mesh the tree was saved from (the reference's
+elastic restore).
+
 bf16 leaves are written as the reference writes them: numpy has no
 bfloat16, so the file holds the raw 2-byte values with the ``'<V2'`` descr
 and the manifest says ``"bfloat16"``.  On restore the manifest's dtype
@@ -31,6 +39,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "/"
 
@@ -75,6 +84,9 @@ class _HostLeaf:
             self.arr, self.dtype = leaf.arr, leaf.dtype
             return
         if isinstance(leaf, torch.Tensor):
+            from torch.distributed.tensor import DTensor
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()   # a collective: every rank
             # A copy even for CPU tensors: the caller may update the leaf in
             # place while the background thread writes it.
             t = leaf.detach().to("cpu", copy=True)
@@ -106,10 +118,31 @@ def _load_leaf(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _group_size() -> int:
+    """The process group's world size; 1 without a group."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _writer() -> bool:
+    """Whether this process writes files: rank 0 of a process group."""
+    return _group_size() == 1 or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str | Path, step: int, tree: Any,
                     extra: dict | None = None) -> Path:
-    """Synchronous atomic save of one tree of tensors (or numpy arrays)."""
+    """Synchronous atomic save of one tree of tensors (or numpy arrays).
+
+    In a process group every rank calls it (DTensor leaves are gathered)
+    and rank 0 alone writes; ``restore_checkpoint`` waits for it.
+    """
     directory = Path(directory)
+    final = directory / f"step_{step:08d}"
+    if not _writer():
+        for _, leaf in _flatten(tree):
+            _HostLeaf(leaf)
+        return final
     directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"tmp.{step}"
     if tmp.exists():
@@ -125,7 +158,6 @@ def save_checkpoint(directory: str | Path, step: int, tree: Any,
                                    "shape": list(host.arr.shape),
                                    "dtype": host.dtype})
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-    final = directory / f"step_{step:08d}"
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)
@@ -146,9 +178,27 @@ def latest_step(directory: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
+def _agreed_step(directory: Path, step: int | None) -> int:
+    """``step``, or the latest one; in a process group of several ranks,
+    rank 0's choice, made after every rank (rank 0's writes done) met at a
+    barrier."""
+    if _group_size() > 1:
+        dist.barrier()
+        box = [step if step is not None or dist.get_rank() != 0
+               else latest_step(directory)]
+        dist.broadcast_object_list(box, src=0)
+        step = box[0]
+    elif step is None:
+        step = latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    return step
+
+
 def restore_checkpoint(directory: str | Path, tree_like: Any,
                        step: int | None = None, *,
-                       shardings: Any = None) -> tuple[Any, int, dict]:
+                       shardings: Any = None,
+                       mesh=None) -> tuple[Any, int, dict]:
     """Restore into the structure of ``tree_like``; returns (tree, step,
     extra).
 
@@ -158,12 +208,22 @@ def restore_checkpoint(directory: str | Path, tree_like: Any,
     counterpart of the reference's placement argument — is a
     ``torch.device`` for every leaf; when it is None, each leaf goes to the
     device of the ``tree_like`` tensor it replaces, or stays on the CPU.
+    With a ``DeviceMesh`` as ``mesh``, ``shardings`` is a spec tree (of
+    ``runtime.sharding.PartitionSpec``) with ``tree_like``'s structure, and
+    every leaf comes back a DTensor placed by its spec on ``mesh``.
+
+    In a process group every rank calls it, after its own writes ended
+    (``CheckpointManager.restore_latest`` waits for them), and every rank
+    restores the step rank 0 chooses.
     """
+    if mesh is not None:
+        from repro_torch.runtime.sharding import to_shardings
+        tree, step, extra = restore_checkpoint(
+            directory, tree_like, step,
+            shardings=torch.device(mesh.device_type))
+        return to_shardings(tree, shardings, mesh), step, extra
     directory = Path(directory)
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {directory}")
+    step = _agreed_step(directory, step)
     d = directory / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {m["name"]: m for m in manifest["leaves"]}
@@ -178,7 +238,8 @@ def restore_checkpoint(directory: str | Path, tree_like: Any,
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
                              f"expected {want_shape}")
         device = shardings
-        if device is None and isinstance(ref, torch.Tensor):
+        if device is None and isinstance(ref, torch.Tensor) \
+                and ref.device.type != "meta":
             device = ref.device
         leaves[name] = t if device is None else t.to(device)
     return _unflatten(tree_like, leaves), step, manifest["extra"]
@@ -221,11 +282,15 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, tree_like: Any, *, shardings: Any = None):
+    def restore_latest(self, tree_like: Any, *, shardings: Any = None,
+                       mesh=None):
+        self.wait()
         return restore_checkpoint(self.directory, tree_like,
-                                  shardings=shardings)
+                                  shardings=shardings, mesh=mesh)
 
     def _gc(self) -> None:
+        if not _writer():
+            return
         steps = sorted(p for p in self.directory.iterdir()
                        if p.is_dir() and p.name.startswith("step_"))
         for p in steps[:-self.keep]:

@@ -9,17 +9,22 @@ Submodules:
   sync          — Polling (baseline) vs CreditCounter completion.
   engine        — discrete-event host+fabric timeline of overlapped jobs
                   (single/double descriptor buffering; a copy).
-
-The TPU-pod roofline planner (``repro/core/planner.py``) is not ported: it
-waits for the card's own chip spec (ROADMAP A12).
+  planner       — the roofline planner at pod scale (a copy), with the
+                  H100's chip spec beside the TPU's.
 """
 
-from . import decision, dispatch, engine, runtime_model, simulator, sync
+from . import (decision, dispatch, engine, planner, runtime_model, simulator,
+               sync)
 from .dispatch import DispatchStats, MulticastDispatcher, SequentialDispatcher
-from .sync import CreditCounterSync, FaultDetected, PollingSync, emit_credits
+from .planner import (H100_SXM, TPU_V5E, ChipSpec, JobStats, RooflineTerms,
+                      choose_extent, roofline)
+from .sync import (CreditCounterSync, FaultDetected, PollingSync,
+                   credit_threshold, emit_credits)
 
 __all__ = ["simulator", "runtime_model", "decision", "dispatch", "sync",
-           "engine",
+           "engine", "planner",
            "DispatchStats", "MulticastDispatcher", "SequentialDispatcher",
            "CreditCounterSync", "FaultDetected", "PollingSync",
-           "emit_credits"]
+           "emit_credits", "credit_threshold", "ChipSpec", "TPU_V5E",
+           "H100_SXM", "JobStats", "RooflineTerms", "roofline",
+           "choose_extent"]

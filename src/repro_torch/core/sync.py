@@ -1,15 +1,18 @@
 """Accelerator -> host completion synchronization (paper §II credit counter).
 
-The port of ``repro/core/sync.py`` for one card.  Manticore's baseline
+The port of ``repro/core/sync.py``.  Manticore's baseline
 host busy-polls each cluster's done flag — O(M) host interactions; the
 paper's credit counter fires one interrupt when every cluster has
 incremented it — O(1).
 
   * ``PollingSync`` (baseline): the host synchronises once per output.
   * ``CreditCounterSync``: the step emits an extra *credits* output, an
-    int32 device scalar equal to the number of devices (one here) iff every
-    floating-point output is finite.  The host blocks on that 4-byte scalar
-    alone — the interrupt — and a short count is a poisoned output.
+    int32 device scalar equal to the number of devices iff every
+    floating-point output is finite.  On a ``DeviceMesh`` each device
+    checks its own shards and contributes one credit, and one all-reduce
+    sums them (the distributed form of the paper's counter); without a
+    mesh there is one device.  The host blocks on that 4-byte scalar
+    alone — the interrupt — and a short count is a poisoned shard.
 """
 
 from __future__ import annotations
@@ -25,26 +28,45 @@ class FaultDetected(RuntimeError):
     """Credits below threshold: the device produced non-finite outputs."""
 
 
-def credit_threshold() -> int:
-    """Credits a healthy step emits: one per device, and the port has one."""
-    return 1
+def credit_threshold(mesh=None) -> int:
+    """Credits a healthy step emits: one per device of ``mesh`` (1 without)."""
+    return 1 if mesh is None else int(mesh.size())
 
 
-def emit_credits(outputs: Any) -> torch.Tensor:
+def _local(leaf: torch.Tensor) -> torch.Tensor:
+    """This device's values of ``leaf`` (a partial sum is reduced first)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(leaf, DTensor):
+        return leaf
+    if any(p.is_partial() for p in leaf.placements):
+        leaf = leaf.redistribute(leaf.device_mesh, [
+            Replicate() if p.is_partial() else p for p in leaf.placements])
+    return leaf.to_local()
+
+
+def emit_credits(outputs: Any, mesh=None) -> torch.Tensor:
     """An int32 device scalar: the threshold iff all float outputs are finite.
 
     Computed on the outputs' device without a host sync; the host reads it
-    in :meth:`CreditCounterSync.wait`.
+    in :meth:`CreditCounterSync.wait`.  With a ``mesh`` each device checks
+    its local shards, and the credits are summed over the mesh.
     """
     leaves = [x for x in pytree.tree_leaves(outputs)
               if isinstance(x, torch.Tensor)]
     if not leaves:
         raise ValueError("emit_credits needs at least one tensor output")
+    if mesh is not None:
+        leaves = [_local(x) for x in leaves]
     ok = torch.ones((), dtype=torch.bool, device=leaves[0].device)
     for leaf in leaves:
         if leaf.is_floating_point():
             ok &= torch.isfinite(leaf).all()
-    return ok.to(torch.int32) * credit_threshold()
+    if mesh is None:
+        return ok.to(torch.int32)
+    from torch.distributed.tensor import DTensor, Shard
+    one = DTensor.from_local(ok.to(torch.int32).reshape(1), mesh,
+                             [Shard(0)] * mesh.ndim, run_check=False)
+    return one.sum().full_tensor()   # the all-reduce: a replicated scalar
 
 
 class CreditCounterSync:
@@ -52,8 +74,8 @@ class CreditCounterSync:
 
     name = "credit_counter"
 
-    def __init__(self):
-        self.threshold = credit_threshold()
+    def __init__(self, mesh=None):
+        self.threshold = credit_threshold(mesh)
 
     def wait(self, credits: torch.Tensor) -> int:
         got = int(credits.item())  # single 4-byte device->host readback

@@ -80,14 +80,19 @@ class DataPipeline:
     """Host-side prefetching loader placing batches via multicast dispatch.
 
     Each ``next`` returns a (global_batch, seq_len) int32 tensor on
-    ``device``.
+    ``device``; with a ``DeviceMesh`` as ``mesh``, a DTensor on the mesh's
+    device type with the batch over the data axes (the reference's
+    ``P(dp, None)``).  Every rank draws the same batches from the seed and
+    keeps its own rows.
     """
 
     def __init__(self, cfg: DataConfig,
-                 device: str | torch.device = "cuda", *,
+                 device: str | torch.device = "cuda", *, mesh=None,
                  dispatcher: str = "multicast"):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device_type if mesh is not None
+                                     else device)
         self.dispatcher = (MulticastDispatcher() if dispatcher == "multicast"
                            else SequentialDispatcher())
         self._iter = packed_batches(cfg)
@@ -107,7 +112,12 @@ class DataPipeline:
                 self._q.put(batch)
 
     def __next__(self) -> torch.Tensor:
-        return self.dispatcher.put(self._q.get(), self.device)
+        batch = self.dispatcher.put(self._q.get(), self.device)
+        if self.mesh is None:
+            return batch
+        from repro_torch.launch.mesh import data_axes
+        from repro_torch.runtime.sharding import P, distribute
+        return distribute(batch, P(data_axes(self.mesh), None), self.mesh)
 
     def __iter__(self):
         return self

@@ -13,12 +13,17 @@ import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``"cuda"``/``"cuda:N"``/``"cpu"`` -> a concrete ``torch.device``."""
+    """``"cuda"``/``"cuda:N"``/``"cpu"``/``"meta"`` -> a ``torch.device``.
+
+    ``"meta"`` gives shapes and dtypes without storage (the dry run's
+    stand-ins, ``configs.shapes.input_specs``).
+    """
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+        raise ValueError(f"unsupported device {device!r}: use 'cuda', "
+                         "'cpu' or 'meta'")
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "

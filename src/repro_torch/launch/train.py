@@ -8,7 +8,11 @@ fault-tolerant supervisor loop.
       --reduced --device cpu --fused-adamw --steps 20 --batch 4 --seq 32
 
 ``--arch`` defaults to the reference CLI's ``mamba2-370m``; every
-``ARCH_IDS`` entry trains.
+``ARCH_IDS`` entry trains.  ``--data-mesh``/``--model-mesh`` (the
+reference's) train on a (data, model) ``DeviceMesh`` over the process
+group the caller initialised (``torch.distributed``, one rank per device;
+``torchrun`` sets one up): params, moments and batches are DTensors placed
+by ``runtime.sharding``, and a step's credits count every device.
 ``--fused-adamw`` sends the optimizer update through the fused AdamW
 kernel (CUDA on the card, its plain version on the CPU): the counterpart
 of the reference optimizer's ``use_pallas=True``, which the reference CLI
@@ -32,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.sync import credit_threshold
 from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.launch.device import resolve_device
+from repro_torch.launch.mesh import check_mesh_device, host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params, scaled_down
 from repro_torch.models.config import ModelConfig
@@ -39,9 +44,14 @@ from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.runtime.fault import StepSupervisor, SupervisorConfig
 
 
+def _scalar(x) -> float:
+    from torch.distributed.tensor import DTensor
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
+
+
 def build(arch: str, *, reduced: bool, opt: AdamWConfig | None = None,
           vocab: int | None = None, fused_adamw: bool = False,
-          device: str | torch.device = "cuda"):
+          device: str | torch.device = "cuda", mesh=None):
     """Config, device and train step for ``arch``: (cfg, device, step)."""
     cfg = get_config(arch)
     if reduced:
@@ -54,7 +64,7 @@ def build(arch: str, *, reduced: bool, opt: AdamWConfig | None = None,
         cfg = dataclasses.replace(cfg, frontend="")
     dev = resolve_device(device)
     step = make_train_step(cfg, opt_cfg=opt, remat=False,
-                           fused_adamw=fused_adamw)
+                           fused_adamw=fused_adamw, mesh=mesh)
     return cfg, dev, step
 
 
@@ -69,6 +79,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--data-mesh", type=int, default=1)
+    ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--fused-adamw", action="store_true",
                     help="update through the fused AdamW kernel")
@@ -78,30 +90,46 @@ def main(argv=None) -> dict:
 
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 5),
                       total_steps=args.steps)
+    mesh = host_mesh((args.data_mesh, args.model_mesh), args.device)
     cfg, dev, step = build(args.arch, reduced=args.reduced, opt=opt,
-                           fused_adamw=args.fused_adamw, device=args.device)
+                           fused_adamw=args.fused_adamw, device=args.device,
+                           mesh=mesh)
     return run(cfg, step, steps=args.steps, batch=args.batch, seq=args.seq,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-               log_every=args.log_every, resume=args.resume, device=dev)
+               log_every=args.log_every, resume=args.resume, device=dev,
+               mesh=mesh)
 
 
 def run(cfg: ModelConfig, train_step, *, steps: int, batch: int, seq: int,
         ckpt_dir: str | Path = "", ckpt_every: int = 50, log_every: int = 10,
-        resume: bool = False, device: str | torch.device = "cuda") -> dict:
+        resume: bool = False, device: str | torch.device = "cuda",
+        mesh=None) -> dict:
     """Train ``cfg`` for ``steps`` supervised steps of ``train_step``.
 
     Parameters are drawn with seed 0 on ``device``; batches come from the
-    data pipeline with seed 1.  Returns the losses read at each logging
-    point, the steps done, and the supervisor's per-step seconds (host
-    queueing + credit wait), faults and restarts.
+    data pipeline with seed 1.  With a ``mesh`` (the train step must be
+    built over the same one), params and moments are placed by
+    ``param_specs``/``opt_specs`` and batches over the data axes.  Returns
+    the losses read at each logging point, the steps done, and the
+    supervisor's per-step seconds (host queueing + credit wait), faults
+    and restarts.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        check_mesh_device(mesh, dev)
     params = init_params(cfg, seed=0, device=dev)
+    shardings = None
+    if mesh is not None:
+        from repro_torch.runtime.sharding import (opt_specs, param_specs,
+                                                  to_shardings)
+        p_spec = param_specs(params, cfg, mesh)
+        params = to_shardings(params, p_spec, mesh)
+        shardings = (p_spec, opt_specs(p_spec))
     opt_state = init_opt_state(params)
 
     data = DataPipeline(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                   global_batch=batch, seed=1), dev)
+                   global_batch=batch, seed=1), dev, mesh=mesh)
 
     ckpt_dir = ckpt_dir or Path(tempfile.gettempdir()) / \
         f"repro_torch_ckpt_{cfg.name}"
@@ -110,7 +138,7 @@ def run(cfg: ModelConfig, train_step, *, steps: int, batch: int, seq: int,
     if resume:
         try:
             (params, opt_state), start_step, _ = ckpt.restore_latest(
-                (params, opt_state))
+                (params, opt_state), shardings=shardings, mesh=mesh)
             print(f"resumed from step {start_step}")
         except FileNotFoundError:
             pass
@@ -122,7 +150,7 @@ def run(cfg: ModelConfig, train_step, *, steps: int, batch: int, seq: int,
 
     sup = StepSupervisor(step_fn, ckpt,
                          SupervisorConfig(ckpt_every=ckpt_every),
-                         credit_threshold=credit_threshold())
+                         credit_threshold=credit_threshold(mesh))
 
     losses, step_seconds, faults, restarts = [], [], [], 0
     t0 = time.time()
@@ -131,12 +159,13 @@ def run(cfg: ModelConfig, train_step, *, steps: int, batch: int, seq: int,
     try:
         while step < steps:
             state, rep = sup.run(state, data, min(step + log_every, steps),
-                                 start_step=step)
+                                 start_step=step, shardings=shardings,
+                                 mesh=mesh)
             step += rep.steps_done
             step_seconds += rep.step_seconds
             faults += rep.faults
             restarts += rep.restarts
-            loss = float(rep.final_metrics.get("loss", float("nan")))
+            loss = _scalar(rep.final_metrics.get("loss", float("nan")))
             losses.append(loss)
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"({(time.time() - t0):.1f}s)", flush=True)

@@ -4,8 +4,17 @@ The port of ``repro/models/layers.py``: attention, the dense MLP, the
 top-k MoE with capacity and the Mamba2 (SSD) block.  Parameters are
 explicit dicts of tensors with the reference's layouts: activations are
 ``(B, S, d)``, heads ``(B, S, H, D)``, KV caches ``(B, slots, K, D)`` and
-SSM caches ``{"ssm": (B, H, P, N) f32, "conv": (B, W-1, C)}``.  The
-reference's ``ShardCtx`` has no counterpart: the port runs on one device.
+SSM caches ``{"ssm": (B, H, P, N) f32, "conv": (B, W-1, C)}``.
+
+Sharding hints go through a ``ShardCtx`` at the reference's call sites.
+``NO_SHARD`` (the default) makes ``constrain`` return its input, so the
+one-device path runs no DTensor op.  An active context (built by
+``runtime.sharding.make_shard_ctx`` over a ``DeviceMesh``) redistributes
+the DTensor activations to the spec's placements; DTensor's own sharding
+propagation places everything between those points.  The decode cache
+write and the attention over the cache run on each rank's batch rows of
+a slot-complete cache (``_on_batch_shards``): the fused kernel takes raw
+pointers and has no sharding rule.
 
 Where the reference asks for ``preferred_element_type=float32`` the port
 upcasts both operands to f32 before the product, which computes the same
@@ -17,7 +26,11 @@ caches.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -25,13 +38,167 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   fused_decode_attention,
                                                   quantize_kv, write_slots)
+from repro_torch.runtime.flags import baseline_mode
 
 from .config import ModelConfig
 
-__all__ = ["rms_norm", "gated_rms_norm", "rope_cos_sin", "apply_rope",
-           "NEG_INF", "chunked_attention", "decode_attention", "quantize_kv",
+__all__ = ["ShardCtx", "NO_SHARD", "rms_norm", "gated_rms_norm",
+           "rope_cos_sin", "apply_rope", "NEG_INF", "chunked_attention", "decode_attention", "quantize_kv",
            "dequantize_kv", "attention_block", "mlp_block", "moe_capacity",
            "moe_route", "moe_block", "ssd_chunked", "mamba_block"]
+
+
+# --------------------------------------------------------------------------- #
+# Sharding context
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh axes for activation sharding constraints.
+
+    ``dp`` are the data-parallel axes (maybe with ``pod``), ``tp`` the
+    model axis, ``mesh`` the ``DeviceMesh`` the constraints refer to.
+    """
+
+    dp: tuple[str, ...] = ()
+    tp: str | None = None
+    active: bool = False
+    mesh: Any = None
+
+    def constrain(self, x, *spec):
+        """``x`` redistributed to ``spec``'s placements (``x`` if inactive).
+
+        A dim that its axes do not divide stays replicated: GSPMD pads an
+        uneven shard, but DTensor cannot reshape one (the MoE's single
+        routing group over four devices, say).
+        """
+        if not self.active:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from repro_torch.runtime.sharding import axis_size, to_placements
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, self.mesh,
+                                   [Replicate()] * self.mesh.ndim,
+                                   run_check=False)
+        spec = tuple(a if x.shape[d] % axis_size(self.mesh, a) == 0 else None
+                     for d, a in enumerate(spec))
+        # Contiguous local shards: DTensor's einsum views the MoE buffers.
+        return x.redistribute(self.mesh,
+                              to_placements(spec, self.mesh)).contiguous()
+
+    def tp_size(self) -> int:
+        from repro_torch.runtime.sharding import axis_size
+        return axis_size(self.mesh, self.tp) if self.active else 1
+
+    def scope(self):
+        """Where plain tensors made inside the model (positions, masks,
+        rope tables) meet DTensors: DTensor treats them as replicated."""
+        if not self.active:
+            return contextlib.nullcontext()
+        return _implicit_replication()
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """``torch.distributed.tensor.experimental.implicit_replication`` that
+    nests: it restores the flag it found (the library's sets it to False
+    on exit, which would end an enclosing scope, such as the train step's
+    around its backward pass)."""
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+NO_SHARD = ShardCtx()
+
+
+def _on_local_blocks(ctx: ShardCtx, fn, args, placements=None):
+    """``fn`` on each device's blocks: ``fn(*local args) -> outputs``;
+    ``fn(*args)`` itself when ``ctx`` is inactive.
+
+    ``args`` are DTensors evenly sharded (``ShardCtx.constrain`` keeps
+    shards even) over blocks that ``fn`` computes independently (batch
+    rows, heads).  Each output is placed like ``args[0]``, or as
+    ``placements(args[0].placements)`` gives (one per output).  Each
+    device's outputs depend on its own blocks alone, so the gradients keep
+    the inputs' placements, except where an input is replicated over a
+    mesh axis that splits ``args[0]`` (the SSD's B and C, shared by heads
+    on other devices; a weight, shared by other rows): there its gradient
+    is a partial sum.  DTensor's own einsum merges a batch sharded over
+    one mesh axis with heads sharded over another into one strided shard,
+    which it cannot propagate under fake tensors (the dry run).
+    """
+    if not ctx.active:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    lead = args[0].placements
+
+    def local(a):
+        if a is None:
+            return None
+        if not isinstance(a, DTensor):    # a plain tensor: replicated
+            return a
+        return a.to_local(grad_placements=[
+            Partial() if isinstance(lp, Shard) and isinstance(ap, Replicate)
+            else ap for lp, ap in zip(lead, a.placements)])
+
+    outs = fn(*(local(a) for a in args))
+    single = isinstance(outs, torch.Tensor)
+    outs = (outs,) if single else outs
+    places = (lead,) * len(outs) if placements is None else placements(lead)
+    placed = tuple(DTensor.from_local(o, ctx.mesh, p, run_check=False)
+                   for o, p in zip(outs, places))
+    return placed[0] if single else placed
+
+
+def _on_batch_shards(ctx: ShardCtx, cache: dict, fn, *args):
+    """``fn(cache, *args)`` on each rank's batch rows of a whole cache;
+    ``fn(cache, *args)`` itself when ``ctx`` is inactive.
+
+    ``cache``'s leaves are DTensors with slots over the model axis; each
+    rank gathers its batch rows' slots, runs ``fn`` on plain local tensors
+    (the args cut to the same rows), and writes the cache back to its own
+    shard in place.  ``fn`` returns a (B_local, ...) tensor, returned as a
+    DTensor with the batch over the cache's data axes, or None.
+    """
+    if not ctx.active:
+        return fn(cache, *args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = ctx.mesh
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+    first = cache[names[0]]
+    # Keep the batch rows' placement; gather everything else.
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in first.placements)
+    whole = {n: cache[n].redistribute(mesh, rows) for n in names}
+    local_cache = dict(cache, **{n: w.to_local() for n, w in whole.items()})
+
+    def local(x):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, rows).to_local()
+
+    out = fn(local_cache, *(local(a) for a in args))
+    for n in names:
+        mine, wrote = cache[n].to_local(), local_cache[n]
+        # (Storage identity, not data pointers: the dry run's fake tensors
+        # have none.)
+        if mine.untyped_storage()._cdata != wrote.untyped_storage()._cdata:
+            mine.copy_(whole[n].redistribute(mesh, cache[n].placements)
+                       .to_local())
+    if out is None:
+        return None
+    shape = (first.shape[0], *out.shape[1:])
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 # --------------------------------------------------------------------------- #
@@ -205,8 +372,9 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 # --------------------------------------------------------------------------- #
 def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
                     positions: torch.Tensor, window: int = 0,
-                    cache: dict | None = None,
-                    fused: bool = False) -> tuple[torch.Tensor, dict | None]:
+                    cache: dict | None = None, fused: bool = False,
+                    ctx: ShardCtx = NO_SHARD,
+                    ) -> tuple[torch.Tensor, dict | None]:
     """Projections + rope + attention; returns ``(y, cache)``.
 
     ``cache`` is ``{"k", "v": (B, slots, K, D), "len"}`` (plus f32
@@ -216,9 +384,28 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     """
     b, s, _ = x.shape
     hd = cfg.qk_head_dim
+    # The KV heads are replicated when the model axis does not divide them
+    # (``sharding._rule``), and DTensor can neither regroup model-sharded q
+    # heads into (K, G) nor split a model-sharded K*D into K heads: then
+    # q, k and v (and, in the backward pass, the output's gradient) are
+    # gathered over the model axis, whose devices all run the attention.
+    # (Splitting the query positions instead makes DTensor's propagation
+    # read data under fake tensors.)
+    gather_heads = cfg.num_kv_heads % ctx.tp_size() != 0
+
+    def kv(w):
+        y = x @ w
+        if gather_heads:
+            y = ctx.constrain(y, ctx.dp, None, None)
+        y = y.reshape(b, s, cfg.num_kv_heads, hd)
+        return ctx.constrain(y, ctx.dp, None, None, None) if gather_heads \
+            else y
+
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    k, v = kv(p["wk"]), kv(p["wv"])
+    q = ctx.constrain(q, ctx.dp, None, ctx.tp, None)
+    if gather_heads:
+        q = ctx.constrain(q, ctx.dp, None, None, None)
     use_fused = fused and cache is not None and s == 1
     if not use_fused:
         # The fused kernel rotates q/k itself from precomputed angles.
@@ -227,14 +414,18 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
 
     quant = "k_scale" in (cache or {})
 
-    def load(name):
-        if quant:
-            return dequantize_kv(cache[name], cache[f"{name}_scale"], x.dtype)
-        return cache[name]
+    def attend(q, k, v):
+        # On a mesh each device attends its batch rows and KV-head group
+        # (all heads when the model axis does not divide the KV heads).
+        heads = None if gather_heads else ctx.tp
+        q, k, v = (ctx.constrain(t, ctx.dp, None, heads, None)
+                   for t in (q, k, v))
+        return _on_local_blocks(ctx, functools.partial(
+            chunked_attention, window=window), (q, k, v))
 
     new_cache = None
     if cache is None:
-        out = chunked_attention(q, k, v, window=window)
+        out = attend(q, k, v)
     elif s > 1:
         # Prefill: full-sequence attention AND populate the cache.
         slots = cache["k"].shape[1]
@@ -247,14 +438,18 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
                                  "ring-buffer window")
             kk, vv = k[:, s - slots:], v[:, s - slots:]
         n = kk.shape[1]
-        for name, val in (("k", kk), ("v", vv)):
-            if quant:
-                qv, sc = quantize_kv(val)
-                cache[name][:, :n] = qv
-                cache[f"{name}_scale"][:, :n] = sc
-            else:
-                cache[name][:, :n] = val.to(cache[name].dtype)
-        out = chunked_attention(q, k, v, window=window)
+
+        def fill(c, kk, vv):
+            for name, val in (("k", kk), ("v", vv)):
+                if quant:
+                    qv, sc = quantize_kv(val)
+                    c[name][:, :n] = qv
+                    c[f"{name}_scale"][:, :n] = sc
+                else:
+                    c[name][:, :n] = val.to(c[name].dtype)
+
+        _on_batch_shards(ctx, cache, fill, kk, vv)
+        out = attend(q, k, v)
         new_cache = dict(cache, len=cache["len"] + s)
     else:
         # Per-slot decode: each row writes its new token at its own
@@ -266,29 +461,45 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         # Local layers keep a ring buffer of exactly `window` slots: every
         # resident slot is in-window by construction, so no window mask.
         is_ring = bool(window) and slots <= window
-        if use_fused:
-            cos, sin = rope_cos_sin(positions, hd, cfg)
-            res = fused_decode_attention(
-                q, k, v, cache["k"], cache["v"], idx, cos, sin,
-                cache.get("k_scale"), cache.get("v_scale"),
-                window=0 if is_ring else window, is_ring=is_ring)
-            out = res[0]
-        else:
+
+        def step(c, q, k, v, idx, positions):
+            if use_fused:
+                cos, sin = rope_cos_sin(positions, hd, cfg)
+                return fused_decode_attention(
+                    q, k, v, c["k"], c["v"], idx, cos, sin,
+                    c.get("k_scale"), c.get("v_scale"),
+                    window=0 if is_ring else window, is_ring=is_ring)[0]
             write = (idx % slots if is_ring else idx).long()
-            rows = torch.arange(b, device=x.device)
+            rows = torch.arange(q.shape[0], device=q.device)
             for name, val in (("k", k), ("v", v)):
                 if quant:
                     qv, sc = quantize_kv(val)
-                    write_slots(cache[name], rows, write, qv[:, 0])
-                    write_slots(cache[f"{name}_scale"], rows, write, sc[:, 0])
+                    write_slots(c[name], rows, write, qv[:, 0])
+                    write_slots(c[f"{name}_scale"], rows, write, sc[:, 0])
                 else:
-                    write_slots(cache[name], rows, write, val[:, 0])
-            out = decode_attention(q, load("k"), load("v"), idx + 1,
-                                   window=0 if is_ring else window)
+                    write_slots(c[name], rows, write, val[:, 0])
+
+            def load(name):
+                if quant:
+                    return dequantize_kv(c[name], c[f"{name}_scale"],
+                                         x.dtype)
+                return c[name]
+            return decode_attention(q, load("k"), load("v"), idx + 1,
+                                    window=0 if is_ring else window)
+
+        # Flash-decoding layout (the reference's non-baseline path): the
+        # one query token is replicated over the model axis.
+        if ctx.active and not baseline_mode():
+            q = ctx.constrain(q, ctx.dp, None, None, None)
+        out = _on_batch_shards(ctx, cache, step, q, k, v, idx, positions)
+        if ctx.active and not baseline_mode():
+            out = ctx.constrain(out, ctx.dp, None, None, None)
         new_cache = dict(cache, len=idx + 1)
 
+    if gather_heads:
+        out = ctx.constrain(out, ctx.dp, None, None, None)
     out = out.reshape(b, s, cfg.num_heads * hd)
-    return out @ p["wo"], new_cache
+    return ctx.constrain(out @ p["wo"], ctx.dp, None, None), new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -298,13 +509,15 @@ _ACTS = {"silu": F.silu,
          "gelu": lambda t: F.gelu(t, approximate="tanh")}
 
 
-def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+              ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     act = _ACTS[cfg.act]
     if cfg.gated_mlp:
         h = act(x @ p["w_gate"]) * (x @ p["w_in"])
     else:
         h = act(x @ p["w_in"])
-    return h @ p["w_out"]
+    h = ctx.constrain(h, ctx.dp, None, ctx.tp)
+    return ctx.constrain(h @ p["w_out"], ctx.dp, None, None)
 
 
 # --------------------------------------------------------------------------- #
@@ -347,13 +560,46 @@ def moe_route(xg: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
     return top_ids, gates, dst, keep
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+def _expert_einsum(ctx: ShardCtx, eq: str, a: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, w)`` of the expert FFN: a (G, E, C, .) and an
+    expert-major weight w (E, ., .).
+
+    On a mesh each device multiplies its (group, expert) block by its
+    experts' whole weights (the FSDP dim gathered) on local tensors, and
+    the weights' gradient is summed over the devices that hold other
+    groups: DTensor's own einsum views non-contiguous shards in the
+    backward pass, which fails.
+    """
+    if not ctx.active:
+        return torch.einsum(eq, a, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    def on(dim):
+        return [isinstance(pl, Shard) and pl.dim == dim for pl in a.placements]
+
+    experts, groups = on(1), on(0)
+    w_local = w.redistribute(ctx.mesh, [
+        Shard(0) if ex else Replicate() for ex in experts]).to_local(
+        grad_placements=[Shard(0) if ex else Partial() if gr else Replicate()
+                         for ex, gr in zip(experts, groups)])
+    y = torch.einsum(eq, a.to_local(), w_local)
+    shape = (*a.shape[:3], w.shape[-1])
+    return DTensor.from_local(y, ctx.mesh, a.placements, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+              ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Top-k MoE: route, scatter into per-expert capacity slots, the gated
     expert FFN on every slot (``gecd,edf``/``gecf,efd``), gated combine.
 
     Tokens split into ``cfg.moe_groups`` routing groups, each with its own
     capacity; with one group, every row of the batch competes for the same
-    slots, as in the reference.
+    slots, as in the reference.  On a mesh the groups shard over every
+    axis for routing and the experts over the model axis for the FFN, at
+    the reference's constraint points.
     """
     b, s, d = x.shape
     e, k, g = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_groups
@@ -363,32 +609,57 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     tg = tokens // g
     cap = moe_capacity(tg, cfg)
     xg = x.reshape(g, tg, d)
-    _, gates, dst, keep = moe_route(xg, p["w_router"], cfg, cap)
+    all_axes = (*ctx.dp, *((ctx.tp,) if ctx.tp else ()))
+    xg = ctx.constrain(xg, all_axes, None, None)
 
-    # Dispatch.  Every row of the buffer but the overflow row receives at
-    # most one copy, added onto an exact 0, so the result does not depend
-    # on the order in which index_add's atomic adds land on the card; the
-    # overflow row, which may take many, is dropped.
-    rows = e * cap + 1
-    base = torch.arange(g, device=x.device)[:, None]
-    xrep = xg[:, :, None].expand(g, tg, k, d)                 # (G, Tg, K, d)
-    buf = x.new_zeros((g * rows, d)).index_add(
-        0, (dst + base * rows).reshape(-1), xrep.reshape(-1, d))
-    buf = buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d)
+    def dispatch(xg, w_router):
+        # Every row of the buffer but the overflow row receives at most one
+        # copy, added onto an exact 0, so the result does not depend on the
+        # order in which index_add's atomic adds land on the card; the
+        # overflow row, which may take many, is dropped.
+        g = xg.shape[0]
+        _, gates, dst, keep = moe_route(xg, w_router, cfg, cap)
+        rows = e * cap + 1
+        base = torch.arange(g, device=xg.device)[:, None]
+        xrep = xg[:, :, None].expand(g, tg, k, d)             # (G, Tg, K, d)
+        buf = xg.new_zeros((g * rows, d)).index_add(
+            0, (dst + base * rows).reshape(-1), xrep.reshape(-1, d))
+        return (buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d),
+                gates, dst, keep)
+
+    def combine(y_e, gates, dst, keep):
+        # Each copy reads its slot back (an overflowed copy reads the last
+        # real slot and is zeroed by ``keep``), weighted by its gate.
+        g = y_e.shape[0]
+        base = torch.arange(g, device=y_e.device)[:, None]
+        src = torch.clamp_max(dst, e * cap - 1) + base * (e * cap)
+        out = y_e.reshape(g * e * cap, d).index_select(0, src.reshape(-1))
+        out = out.reshape(g, tg * k, d)
+        out = out * keep[..., None].to(out.dtype)
+        out = out * gates.reshape(g, tg * k)[..., None].to(out.dtype)
+        return out.reshape(g, tg, k, d).sum(dim=2)
+
+    # On a mesh each device routes, dispatches and combines its own groups
+    # on local tensors (DTensor's index_add loses track of a batch split
+    # over two mesh axes); the expert FFN between runs expert-sharded.
+    buf, gates, dst, keep = _on_local_blocks(ctx, dispatch,
+                                             (xg, p["w_router"]))
+    if not baseline_mode():
+        buf = ctx.constrain(buf, all_axes, None, None, None)
+    buf = ctx.constrain(buf, ctx.dp, ctx.tp, None, None)   # the EP all-to-all
 
     act = _ACTS[cfg.act]
-    h = act(torch.einsum("gecd,edf->gecf", buf, p["w_gate"])) \
-        * torch.einsum("gecd,edf->gecf", buf, p["w_in"])
-    y_e = torch.einsum("gecf,efd->gecd", h, p["w_out"])
-
-    # Combine: each copy reads its slot back (an overflowed copy reads the
-    # last real slot and is zeroed by ``keep``), weighted by its gate.
-    src = torch.clamp_max(dst, e * cap - 1) + base * (e * cap)
-    out = y_e.reshape(g * e * cap, d).index_select(0, src.reshape(-1))
-    out = out.reshape(g, tg * k, d)
-    out = out * keep[..., None].to(out.dtype)
-    out = out * gates.reshape(g, tg * k)[..., None].to(out.dtype)
-    return out.reshape(g, tg, k, d).sum(dim=2).reshape(b, s, d)
+    h = act(_expert_einsum(ctx, "gecd,edf->gecf", buf, p["w_gate"])) \
+        * _expert_einsum(ctx, "gecd,edf->gecf", buf, p["w_in"])
+    h = ctx.constrain(h, ctx.dp, ctx.tp, None, None)
+    y_e = _expert_einsum(ctx, "gecf,efd->gecd", h, p["w_out"])
+    y_e = ctx.constrain(y_e, ctx.dp, ctx.tp, None, None)
+    y_e = ctx.constrain(y_e, all_axes, None, None, None)   # xg's placements
+    y = _on_local_blocks(ctx, combine, (y_e, gates, dst, keep))
+    # Groups back over the data axes alone before they merge into rows,
+    # which the model axis does not split.
+    y = ctx.constrain(y, ctx.dp, None, None)
+    return ctx.constrain(y.reshape(b, s, d), ctx.dp, None, None)
 
 
 # --------------------------------------------------------------------------- #
@@ -474,8 +745,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return sum(pad[:, i:i + t] * w[i] for i in range(width)), None
 
 
+def _ssd_placements(x_placements):
+    """The SSD's outputs' placements on a mesh: y (B, S, H, P) like x, the
+    state (B, H, P, N) with x's heads dim moved to dim 1."""
+    from torch.distributed.tensor import Shard
+    return x_placements, tuple(Shard(1) if p == Shard(2) else p
+                               for p in x_placements)
+
+
 def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
-                cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+                cache: dict | None = None, ctx: ShardCtx = NO_SHARD,
+                ) -> tuple[torch.Tensor, dict | None]:
     """Mamba2 block; returns ``(y, cache)``.
 
     ``cache`` is ``{"ssm": (B, H, P, N) f32, "conv": (B, W-1, C)}`` (plus
@@ -489,15 +769,24 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     pdim = di // h
     width = p["w_conv"].shape[0]
 
-    z = x @ p["w_z"]
-    xin = x @ p["w_x"]
+    z = ctx.constrain(x @ p["w_z"], ctx.dp, None, ctx.tp)
+    xin = ctx.constrain(x @ p["w_x"], ctx.dp, None, ctx.tp)
     bc = x @ p["w_bc"]
     dt = x @ p["w_dt"]
 
     conv_in = torch.cat([xin, bc], dim=-1)
     decoding = cache is not None and s == 1
-    conv_out, new_conv = _causal_conv(conv_in, p["w_conv"],
-                                      cache["conv"] if decoding else None)
+    # On a mesh each device convolves its batch rows on local tensors
+    # (DTensor's pad loses track of a batch split over two mesh axes).
+    conv_in = ctx.constrain(conv_in, ctx.dp, None, None)
+    if decoding:
+        state = ctx.constrain(cache["conv"], ctx.dp, None, None)
+        conv_out, new_conv = _on_local_blocks(
+            ctx, _causal_conv, (conv_in, p["w_conv"], state))
+    else:
+        conv_out, new_conv = _on_local_blocks(
+            ctx, lambda c, w: _causal_conv(c, w, None)[0],
+            (conv_in, p["w_conv"])), None
     conv_out = F.silu(conv_out.float()).to(x.dtype)
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
 
@@ -508,9 +797,20 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     dt_a = dt * a                                             # (B, S, H)
 
     if not decoding:
-        y, final_state = ssd_chunked(
-            x_dt, dt_a, bmat, cmat, chunk=min(cfg.ssm_chunk, s),
-            init_state=cache["ssm"] if cache is not None else None)
+        ssd = functools.partial(ssd_chunked, chunk=min(cfg.ssm_chunk, s))
+        init = cache["ssm"] if cache is not None else None
+        # On a mesh each device runs its batch rows and heads (see
+        # ``_on_local_blocks``); the state (B, H, P, N) follows x's
+        # placements (B, S, H, P).
+        x_dt = ctx.constrain(x_dt, ctx.dp, None, ctx.tp, None)
+        dt_a = ctx.constrain(dt_a, ctx.dp, None, ctx.tp)
+        bmat = ctx.constrain(bmat, ctx.dp, None, None)
+        cmat = ctx.constrain(cmat, ctx.dp, None, None)
+        if init is not None:
+            init = ctx.constrain(init, ctx.dp, ctx.tp, None, None)
+        y, final_state = _on_local_blocks(
+            ctx, lambda *a: ssd(*a[:4], init_state=a[4]),
+            (x_dt, dt_a, bmat, cmat, init), _ssd_placements)
         if cache is not None:   # prefill: persist the SSM state, conv tail
             if s < width - 1:
                 raise ValueError(f"prefill of {s} tokens is shorter than "
@@ -531,4 +831,4 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
 
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = gated_rms_norm(y.reshape(b, s, di), z, p["w_norm"], cfg.norm_eps)
-    return y @ p["w_out"], cache
+    return ctx.constrain(y @ p["w_out"], ctx.dp, None, None), cache

@@ -10,7 +10,8 @@ Python.  Hybrid archs (Zamba2) invoke one ``params["shared"]`` attention
 block from each ``shared_attn`` position; its weights are stored once,
 and each invocation has its own KV cache.
 
-Entry points:
+Entry points (each takes ``ctx=NO_SHARD``, a ``ShardCtx``; an active one
+runs the same code on DTensors placed over a ``DeviceMesh``):
   init_params(cfg, seed=, device=)              -> param tree
   forward(params, cfg, tokens=, remat=)         -> logits (B, S, V) f32
   cross_entropy(logits, targets, mask=)         -> mean next-token loss
@@ -36,8 +37,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.device import resolve_device
 
 from .config import ModelConfig
-from .layers import (attention_block, mamba_block, mlp_block, moe_block,
-                     rms_norm)
+from .layers import (NO_SHARD, ShardCtx, attention_block, mamba_block,
+                     mlp_block, moe_block, rms_norm)
 
 Params = dict[str, Any]
 
@@ -153,7 +154,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random parameters with the reference's distributions and scales,
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # On the meta device (shapes and dtypes only) there is nothing to draw.
+    gen = (None if dev.type == "meta" else
+           torch.Generator(device=dev).manual_seed(seed))
     dt = _dtype(cfg.dtype)
     d, vp = cfg.d_model, cfg.vocab_padded
     stacked = _Init(gen, dev, dt, (cfg.full_groups,))
@@ -176,7 +179,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # Blocks
 # --------------------------------------------------------------------------- #
 def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
-                 shared=None, fused=False):
+                 shared=None, fused=False, ctx: ShardCtx = NO_SHARD):
     """One decoder block; returns (h, cache).  A ``shared_attn`` block runs
     the ``shared`` attention block's weights."""
     if kind == "shared_attn":
@@ -184,23 +187,24 @@ def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
     window = cfg.sliding_window if kind == "local" else 0
     if kind == "mamba":
         m_out, new_cache = mamba_block(rms_norm(h, bp["norm1"], cfg.norm_eps),
-                                       bp["mamba"], cfg, cache=cache)
+                                       bp["mamba"], cfg, cache=cache, ctx=ctx)
         return h + m_out, new_cache
     a_in = rms_norm(h, bp["norm1"], cfg.norm_eps)
     a_out, new_cache = attention_block(a_in, bp["attn"], cfg,
                                        positions=positions, window=window,
-                                       cache=cache, fused=fused)
+                                       cache=cache, fused=fused, ctx=ctx)
     h = h + a_out
     f_in = rms_norm(h, bp["norm2"], cfg.norm_eps)
     if "moe" in bp:
-        f_out = moe_block(f_in, bp["moe"], cfg)
+        f_out = moe_block(f_in, bp["moe"], cfg, ctx=ctx)
     else:
-        f_out = mlp_block(f_in, bp["mlp"], cfg)
+        f_out = mlp_block(f_in, bp["mlp"], cfg, ctx=ctx)
     return h + f_out, new_cache
 
 
 def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
-               cache_len=None, fused=False, remat=False):
+               cache_len=None, fused=False, remat=False,
+               ctx: ShardCtx = NO_SHARD):
     """The full groups in order, then the tail.  Returns (h, caches).
 
     ``remat=True`` recomputes each group's activations in the backward
@@ -219,7 +223,7 @@ def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
             hh, _ = _apply_block(hh, _index(params["groups"][i], g), kind,
                                  cfg, positions=positions,
                                  cache=with_len(entry), shared=shared,
-                                 fused=fused)
+                                 fused=fused, ctx=ctx)
         return hh
 
     for g in range(cfg.full_groups):
@@ -231,15 +235,52 @@ def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
         entry = caches["tail"][i] if caches is not None else None
         h, _ = _apply_block(h, params["tail"][i], kind, cfg,
                             positions=positions, cache=with_len(entry),
-                            shared=shared, fused=fused)
+                            shared=shared, fused=fused, ctx=ctx)
     return h, caches
 
 
 # --------------------------------------------------------------------------- #
 # Forward (prefill)
 # --------------------------------------------------------------------------- #
-def embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def embed_tokens(params, tokens: torch.Tensor,
+                 ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    if not ctx.active:
+        return params["embed"][tokens.long()]
+    return ctx.constrain(_embed_on_shards(params["embed"], tokens, ctx),
+                         ctx.dp, None, None)
+
+
+def _embed_on_shards(table, tokens, ctx: ShardCtx):
+    """The lookup on a mesh: each device looks up its batch rows' tokens in
+    its vocabulary block of the table (ids outside the block give zeros),
+    a partial sum over the model axis.  DTensor's own index op refuses a
+    batch sharded over two mesh axes (``pod`` and ``data``) in some
+    releases."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ctx.mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tokens = ctx.constrain(tokens, ctx.dp, *(None,) * (tokens.ndim - 1))
+    split = ctx.tp_size() > 1 and table.shape[0] % ctx.tp_size() == 0
+    vocab = [split and n == ctx.tp for n in mesh.mesh_dim_names]
+    rows = [isinstance(p, Shard) for p in tokens.placements]
+    local = table.redistribute(mesh, [
+        Shard(0) if vb else Replicate() for vb in vocab]).to_local(
+        grad_placements=[Shard(0) if vb else Partial() if r else Replicate()
+                         for vb, r in zip(vocab, rows)])
+    ids = tokens.to_local().long()
+    if split:
+        block = local.shape[0]
+        ids = ids - block * mesh.get_local_rank(ctx.tp)
+        inside = (ids >= 0) & (ids < block)
+        out = local[ids.clamp(0, block - 1)] * inside[..., None].to(
+            local.dtype)
+    else:
+        out = local[ids]
+    return DTensor.from_local(out, mesh, [
+        Partial() if vb else p for vb, p in zip(vocab, tokens.placements)],
+        run_check=False)
 
 
 class _GradDtypeBarrier(torch.autograd.Function):
@@ -264,7 +305,8 @@ def _grad_dtype_barrier(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
     return _GradDtypeBarrier.apply(x, _dtype(dtype_str))
 
 
-def logits_from_hidden(params, h, cfg: ModelConfig) -> torch.Tensor:
+def logits_from_hidden(params, h, cfg: ModelConfig,
+                       ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     h = _grad_dtype_barrier(h, cfg.dtype)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -273,26 +315,34 @@ def logits_from_hidden(params, h, cfg: ModelConfig) -> torch.Tensor:
         # Mask padded vocabulary columns.
         pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return ctx.constrain(logits, ctx.dp, None, ctx.tp)
 
 
-def _hidden(params, cfg, tokens, embeds):
+def _hidden(params, cfg, tokens, embeds, ctx):
     if (tokens is None) == (embeds is None):
         raise ValueError("provide exactly one of tokens/embeds")
     if embeds is None:
-        return embed_tokens(params, tokens)
-    return embeds.to(_dtype(cfg.dtype))
+        return embed_tokens(params, tokens, ctx)
+    return ctx.constrain(embeds.to(_dtype(cfg.dtype)), ctx.dp, None, None)
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-            positions=None, remat: bool = False) -> torch.Tensor:
+            positions=None, remat: bool = False,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V)."""
-    h = _hidden(params, cfg, tokens, embeds)
-    b, s = h.shape[:2]
-    if positions is None:
-        positions = torch.arange(s, device=h.device)[None].expand(b, s)
-    h, _ = _run_stack(params, h, cfg, positions=positions, remat=remat)
-    return logits_from_hidden(params, h, cfg)
+    with ctx.scope():
+        h = _hidden(params, cfg, tokens, embeds, ctx)
+        b, s = h.shape[:2]
+        if positions is None:
+            positions = torch.arange(s, device=h.device)[None].expand(b, s)
+        h, _ = _run_stack(params, h, cfg, positions=positions, remat=remat,
+                          ctx=ctx)
+        return logits_from_hidden(params, h, cfg, ctx)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -315,7 +365,14 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         lmax = logits.amax(dim=-1, keepdim=True).detach()
         lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) \
             + lmax[..., 0]
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if _is_dtensor(logits):
+        # Vocab-sharded logits: the reference's one-hot product, which
+        # each device computes on its own vocabulary columns.
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = (logits * (targets[..., None] == vocab).to(logits.dtype)
+                ).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         mask = mask[:, 1:].to(nll.dtype)
@@ -323,17 +380,19 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return nll.mean()
 
 
-def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None):
+def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None,
+            ctx: ShardCtx = NO_SHARD):
     """Batched prefill: full-sequence forward that also fills ``caches``.
 
     Returns (logits (B, S, V), caches).
     """
-    h = _hidden(params, cfg, tokens, embeds)
-    b, s = h.shape[:2]
-    positions = torch.arange(s, device=h.device)[None].expand(b, s)
-    h, caches = _run_stack(params, h, cfg, positions=positions, caches=caches,
-                           cache_len=0)
-    return logits_from_hidden(params, h, cfg), caches
+    with ctx.scope():
+        h = _hidden(params, cfg, tokens, embeds, ctx)
+        b, s = h.shape[:2]
+        positions = torch.arange(s, device=h.device)[None].expand(b, s)
+        h, caches = _run_stack(params, h, cfg, positions=positions,
+                               caches=caches, cache_len=0, ctx=ctx)
+        return logits_from_hidden(params, h, cfg, ctx), caches
 
 
 # --------------------------------------------------------------------------- #
@@ -385,7 +444,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len, *,
-                fused: bool = False):
+                fused: bool = False, ctx: ShardCtx = NO_SHARD):
     """One decode step: tokens (B, 1) int -> (logits (B,1,V), caches).
 
     ``cache_len`` is the number of tokens already in the cache, a scalar or
@@ -393,16 +452,18 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len, *,
     it as its rotary position.  ``fused=True`` runs every attention block
     through the fused decode-attention kernel, one launch per layer.
     """
-    h = embed_tokens(params, tokens)
-    b = tokens.shape[0]
-    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=h.device)
-    if lens.ndim == 0:
-        lens = lens.expand(b)
-    lens = lens.contiguous()
-    positions = lens[:, None]                       # (B, 1) per-slot position
-    h, caches = _run_stack(params, h, cfg, positions=positions, caches=caches,
-                           cache_len=lens, fused=fused)
-    return logits_from_hidden(params, h, cfg), caches
+    with ctx.scope():
+        h = embed_tokens(params, tokens, ctx)
+        b = tokens.shape[0]
+        lens = torch.as_tensor(cache_len, dtype=torch.int32, device=h.device)
+        if lens.ndim == 0:
+            lens = lens.expand(b)
+        lens = lens.contiguous()
+        positions = lens[:, None]                   # (B, 1) per-slot position
+        h, caches = _run_stack(params, h, cfg, positions=positions,
+                               caches=caches, cache_len=lens, fused=fused,
+                               ctx=ctx)
+        return logits_from_hidden(params, h, cfg, ctx), caches
 
 
 def merge_cache_slots(live, fresh, slot_mask):

@@ -40,14 +40,21 @@ class AdamWConfig:
     min_lr_frac: float = 0.1
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def _leaves(tree: Any) -> list[torch.Tensor]:
     return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
 
 def init_opt_state(params: Any) -> dict:
-    """Zero f32 moments shaped like ``params``, and a device step count."""
+    """Zero f32 moments shaped (and, for DTensors, placed) like ``params``,
+    and a device step count."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     device = _leaves(params)[0].device
     return {
@@ -124,7 +131,9 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     (g_leaves, _), (m_leaves, _), (v_leaves, _) = trees
     for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
         if use_kernel and p.ndim >= 1 and p.numel() >= 128:
-            ops.adamw_update(p, g, m, v, hp)
+            # On a mesh p, g, m and v share one placement: the kernel
+            # updates each device's shards.
+            ops.adamw_update(*(_local(x) for x in (p, g, m, v, hp)))
         else:
             p_new, m_new, v_new = _update_leaf(p, g, m, v, lr, cfg, c1, c2)
             p.copy_(p_new)

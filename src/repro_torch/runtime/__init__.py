@@ -1,5 +1,6 @@
-"""Runtime: flags, fault injection and the supervised step loop.
+"""Runtime: flags, fault injection, the supervised step loop, the sharding
+rules (``sharding``) and the analytic cell costs (``analytics``).
 
-The reference's sharding rules (``repro/runtime/sharding.py``) are not
-ported: the port runs on one card (ROADMAP A12).
+The submodules are imported by name: ``sharding`` imports the model,
+which imports ``flags`` from here.
 """

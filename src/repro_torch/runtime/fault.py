@@ -288,13 +288,14 @@ class StepSupervisor:
                 f"credits {got} != threshold {self.credit_threshold}")
 
     def run(self, state: Any, batches, num_steps: int, *,
-            start_step: int = 0,
-            shardings: Any = None) -> tuple[Any, SupervisorReport]:
+            start_step: int = 0, shardings: Any = None,
+            mesh=None) -> tuple[Any, SupervisorReport]:
         """Run steps ``start_step .. num_steps - 1``; returns (state, report).
 
         ``shardings`` is passed to the checkpoint restore of a rollback: a
         ``torch.device`` for every restored leaf, or None to restore each
-        leaf onto the device of the state leaf it replaces.
+        leaf onto the device of the state leaf it replaces; with a
+        ``DeviceMesh`` as ``mesh``, the state's spec tree.
         """
         from repro_torch.core.sync import FaultDetected
         rep = SupervisorReport()
@@ -324,7 +325,7 @@ class StepSupervisor:
                     raise
                 # Roll back to the last good checkpoint; skip this batch.
                 state, step, _ = self.ckpt.restore_latest(
-                    state, shardings=shardings)
+                    state, shardings=shardings, mesh=mesh)
                 continue
             dt = time.perf_counter() - t0
             if ema is not None and dt > self.cfg.straggler_factor * ema:

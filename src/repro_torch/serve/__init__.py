@@ -83,14 +83,16 @@ __all__ = [
 class ServeConfig:
     """Every knob of the single-fabric serving stack, as one frozen value.
 
-    The reference's fields, names and defaults, and two of the port's own:
-    ``device`` (``"cuda"``, the default, or ``"cpu"``) is where the engine
-    runs, resolved only when ``execute=True``; ``params`` is a port
+    The reference's fields, names and defaults, and three of the port's
+    own: ``device`` (``"cuda"``, the default, or ``"cpu"``) is where the
+    engine runs, resolved only when ``execute=True``; ``params`` is a port
     parameter tree for the engine (e.g. the reference's, carried across by
-    ``models.convert``) in place of the seeded random weights.  ``arch``
-    may also be a ``ModelConfig`` (e.g. one with its depth cut).
-    ``mesh_shape`` must be ``(1, 1)``: the multi-device layers are not
-    ported yet (ROADMAP A12).
+    ``models.convert``) in place of the seeded random weights; ``mesh`` is
+    a ``DeviceMesh`` the caller built, of shape ``mesh_shape``, to serve
+    on.  ``arch`` may also be a ``ModelConfig`` (e.g. one with its depth
+    cut).  ``mesh_shape`` goes to the engine: other than ``(1, 1)`` it
+    serves on a (data, model) ``DeviceMesh`` of that shape over the
+    caller's ``torch.distributed`` process group (``ServingEngine``).
     """
 
     arch: str = "chatglm3-6b"
@@ -121,6 +123,7 @@ class ServeConfig:
     # --- the port's own ---
     device: str = "cuda"
     params: object = None
+    mesh: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +135,8 @@ class FleetConfig:
     default, or ``"cpu"``, resolved only when ``execute=True``) is where
     every lane's engine runs, and ``params`` is one port parameter tree
     that every lane's engine reads (``None``: each lane draws its own
-    seeded weights, as in the reference).  ``mesh_shape`` must be
-    ``(1, 1)``.
+    seeded weights, as in the reference).  ``mesh_shape`` goes to every
+    lane's engine, as in the reference.
     """
 
     fleet: tuple = (32,)                        # cluster count per fabric
@@ -232,10 +235,6 @@ def serve_workload(
     ``shed_depth`` are the session-affinity/tenant layer, default-off.
     """
     cfg = _config_from_kwargs(config, ServeConfig, kwargs, "serve_workload")
-    if tuple(cfg.mesh_shape) != (1, 1):
-        raise ValueError(
-            f"mesh_shape={cfg.mesh_shape!r}: the port serves on one device; "
-            "multi-device meshes are not ported yet (ROADMAP A12)")
     spec = spec or WorkloadSpec()
     calibrator = cfg.calibrator
     buffering = cfg.buffering
@@ -315,8 +314,10 @@ def serve_workload(
                       default=max(spec.prompt_lens) + max(spec.gen_lens))
         engine = ServingEngine(cfg.arch, reduced=cfg.reduced,
                                max_batch=cfg.max_batch, max_len=max_len,
+                               mesh_shape=cfg.mesh_shape,
                                fused_decode=cfg.fused_decode,
-                               params=cfg.params, device=cfg.device)
+                               params=cfg.params, device=cfg.device,
+                               mesh=cfg.mesh)
         if cfg.fabric == "wallclock":
             # First-call costs must not enter the measured step times the
             # calibrator fits (see ServingEngine.warmup).

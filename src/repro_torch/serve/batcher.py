@@ -23,7 +23,15 @@ methods, arguments and return values, with these differences:
   * ``arch`` may be a ``ModelConfig`` instead of an arch id;
   * caches are updated in place: a step's returned caches are the tensors
     it was given.  ``ContinuousBatcher`` chains each step on the caches
-    the previous one returned, which in-place updates preserve.
+    the previous one returned, which in-place updates preserve;
+  * ``mesh_shape`` (the reference's) other than ``(1, 1)`` builds a
+    ``DeviceMesh`` over the caller's ``torch.distributed`` process group,
+    and ``mesh=`` takes one the caller built (a 1x1 mesh, say): params and
+    caches are then DTensors placed by ``param_specs`` and ``cache_specs``,
+    each step runs on the mesh, and the credit threshold is the mesh's
+    device count.  The mesh's device type must be ``device``'s.  Otherwise
+    the engine is the plain one-device path, whatever process group is
+    initialised, and runs no DTensor op.
 
 Every step of one engine is queued on one CUDA stream, so the pipelined
 loop's refill prefill, queued behind the decode it overlaps, runs after
@@ -47,12 +55,14 @@ from repro_torch.configs import get_config
 from repro_torch.core.dispatch import MulticastDispatcher
 from repro_torch.core.sync import CreditCounterSync, FaultDetected
 from repro_torch.launch.device import resolve_device
+from repro_torch.launch.mesh import host_mesh
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_slot_prefill_step)
 from repro_torch.core import simulator as sim
 from repro_torch.kernels.ops import get_kernel
 from repro_torch.models import (ModelConfig, init_cache, init_params,
                                 scaled_down)
+from repro_torch.runtime.sharding import cache_specs, param_specs, to_shardings
 
 from .calibrator import OnlineCalibrator
 from .fabric import SimulatedFabric, WallClockFabric
@@ -92,33 +102,40 @@ class PendingStep:
 
 
 class ServingEngine:
-    """Prefill/decode steps over ``max_batch`` request slots on one device."""
+    """Prefill/decode steps over ``max_batch`` request slots on one device,
+    or on a ``DeviceMesh`` (``mesh_shape``)."""
 
     def __init__(self, arch: str | ModelConfig, *, reduced: bool = True,
-                 max_batch: int = 4, max_len: int = 64, param_seed: int = 0,
-                 fused_decode: bool = False, params=None,
-                 device: str | torch.device = "cuda"):
+                 max_batch: int = 4, max_len: int = 64, mesh_shape=(1, 1),
+                 param_seed: int = 0, fused_decode: bool = False,
+                 params=None, device: str | torch.device = "cuda",
+                 mesh=None):
         cfg = model_config(arch, reduced=reduced)
         if cfg.frontend == "vision_patches":
             cfg = dataclasses.replace(cfg, frontend="")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = host_mesh(mesh_shape, self.device, mesh=mesh)
         self.max_batch = max_batch
         self.max_len = max_len
         # Fused decode step: one kernel launch per attention layer instead
         # of separate rope/scatter/attend ops, the same tokens.
         self.fused_decode = fused_decode
         self.dispatcher = MulticastDispatcher()
-        self.sync = CreditCounterSync()
+        self.sync = CreditCounterSync(self.mesh)
         #: Credits read by the most recent completed step.
         self.last_credits: int | None = None
         self.params = (params if params is not None else
                        init_params(cfg, seed=param_seed, device=self.device))
-        self._prefill = make_prefill_step(cfg, max_batch, max_len=max_len,
-                                          device=self.device)
-        self._slot_prefill = make_slot_prefill_step(
-            cfg, max_batch, max_len=max_len, device=self.device)
-        self._decode = make_decode_step(cfg, fused=fused_decode)
+        if self.mesh is not None:
+            self.params = to_shardings(
+                self.params, param_specs(self.params, cfg, self.mesh),
+                self.mesh)
+        kw = {"max_len": max_len, "device": self.device, "mesh": self.mesh}
+        self._prefill = make_prefill_step(cfg, max_batch, **kw)
+        self._slot_prefill = make_slot_prefill_step(cfg, max_batch, **kw)
+        self._decode = make_decode_step(cfg, fused=fused_decode,
+                                        mesh=self.mesh)
 
     def _launch(self, step, *args, dispatch_s: float = 0.0) -> PendingStep:
         """Queue ``step(*args)`` and time the queueing."""
@@ -133,8 +150,12 @@ class ServingEngine:
 
     def init_caches(self):
         """Fresh zeroed decode caches for the slot-managed serving loop."""
-        return init_cache(self.cfg, self.max_batch, max_len=self.max_len,
-                          device=self.device)
+        caches = init_cache(self.cfg, self.max_batch, max_len=self.max_len,
+                            device=self.device)
+        if self.mesh is None:
+            return caches
+        return to_shardings(caches, cache_specs(caches, self.cfg, self.mesh),
+                            self.mesh)
 
     def prefill(self, tokens: np.ndarray, metrics=None):
         """tokens (max_batch, L) int32 -> (next_token (B,), caches, wall_s).
@@ -227,7 +248,10 @@ class ServingEngine:
         """
         got, wait_s = self.sync.timed_wait(pending.out["credits"])
         self.last_credits = got
-        return (pending.out["next_token"].cpu().numpy(),
+        next_token = pending.out["next_token"]
+        if self.mesh is not None:
+            next_token = next_token.full_tensor()
+        return (next_token.cpu().numpy(),
                 pending.out["caches"],
                 pending.dispatch_s + pending.launch_s + wait_s)
 

@@ -892,10 +892,6 @@ def serve_fleet(
     # machinery it defines is only reachable at call time.
     from repro_torch.serve import FleetConfig, _config_from_kwargs
     cfg = _config_from_kwargs(config, FleetConfig, kwargs, "serve_fleet")
-    if tuple(cfg.mesh_shape) != (1, 1):
-        raise ValueError(
-            f"mesh_shape={cfg.mesh_shape!r}: the port serves on one device; "
-            "multi-device meshes are not ported yet (ROADMAP A12)")
     spec = spec or WorkloadSpec()
     if cfg.execute:
         from .batcher import model_config
@@ -913,6 +909,7 @@ def serve_fleet(
                       default=max(spec.prompt_lens) + max(spec.gen_lens))
         engines = [ServingEngine(cfg.arch, reduced=cfg.reduced,
                                  max_batch=cfg.max_batch, max_len=max_len,
+                                 mesh_shape=cfg.mesh_shape,
                                  params=cfg.params, device=cfg.device)
                    for _ in cfg.fleet]
     faults = cfg.faults

@@ -154,8 +154,16 @@ def test_fleet_kwarg_shim_warns_and_matches_config():
 
 
 def test_fleet_refuses_what_the_port_cannot_serve():
-    with pytest.raises(ValueError, match="ROADMAP A12"):
-        serve_fleet(config=FleetConfig(mesh_shape=(2, 1)))
+    # mesh_shape goes to the engines, as in the reference: without engines
+    # it changes nothing, and engines on a (2, 1) mesh need a process group.
+    spec = WorkloadSpec(num_requests=8)
+    two = serve_fleet(spec, config=FleetConfig(mesh_shape=(2, 1)))
+    one = serve_fleet(spec, config=FleetConfig())
+    assert json.dumps(two["metrics"].summary(), sort_keys=True) == \
+        json.dumps(one["metrics"].summary(), sort_keys=True)
+    with pytest.raises(RuntimeError, match="process group"):
+        serve_fleet(spec, config=FleetConfig(mesh_shape=(2, 1), execute=True,
+                                             device="cpu"))
     # execute=False never resolves the device (there is no card here).
     out = serve_fleet(WorkloadSpec(num_requests=8),
                       config=FleetConfig(fleet=(32, 8), device="cuda"))

@@ -128,8 +128,16 @@ def test_unported_options_raise():
     from repro.dse import DesignPoint as RefDesignPoint
     from repro_torch.dse import DesignPoint
 
-    with pytest.raises(ValueError, match="ROADMAP A12"):
-        serve_workload(config=ServeConfig(execute=False, mesh_shape=(2, 1)))
+    # mesh_shape goes to the engine: without one it changes nothing, and an
+    # engine on a (2, 1) mesh needs a torch.distributed process group.
+    spec = WorkloadSpec(num_requests=8)
+    two = serve_workload(spec, config=ServeConfig(execute=False,
+                                                  mesh_shape=(2, 1)))
+    one = serve_workload(spec, config=ServeConfig(execute=False))
+    assert _dump(two["metrics"].summary()) == _dump(one["metrics"].summary())
+    with pytest.raises(RuntimeError, match="process group"):
+        serve_workload(spec, config=ServeConfig(mesh_shape=(2, 1),
+                                                device="cpu"))
     # A swept design point is served on the simulated fabric only, with the
     # reference's error.
     with pytest.raises(ValueError) as ref_exc:
@@ -414,7 +422,11 @@ def test_port_serving_modules_import_no_jax_and_no_reference():
             "import repro_torch.serve, repro_torch.obs, "
             "repro_torch.launch.serve, repro_torch.core, repro_torch.dse, "
             "repro_torch.serve.fleet, repro_torch.launch.dse, "
-            "repro_torch.kernels.ref\n"
+            "repro_torch.kernels.ref, repro_torch.configs.shapes, "
+            "repro_torch.core.planner, repro_torch.runtime.analytics, "
+            "repro_torch.launch.mesh, repro_torch.runtime.sharding, "
+            "repro_torch.launch.dryrun, repro_torch.launch.steps, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
