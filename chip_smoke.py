@@ -16,10 +16,13 @@ printing a result:
      streaming shapes of chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b's
      shared attention: S = the streaming trace's max_len, lens 0, S - 1
      and chunk edges, bf16 and int8 caches) — caches bit-exact, attention
-     out within tolerance; then the serving engine queues a
-     prefill-into-slots step and decode steps under
-     ``torch.cuda.set_sync_debug_mode("error")`` (reduced chatglm3-6b,
-     qwen3-moe-30b-a3b and zamba2-1.2b) without raising;
+     out within tolerance; then the serving engine, its steps' graphs
+     captured by a warm call, replays a prefill-into-slots step and two
+     decode steps under ``torch.cuda.set_sync_debug_mode("error")``
+     (reduced chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b) without
+     raising, the decode kernel counted once per attention layer per
+     replay; and the kernel captured and replayed in a graph at a shape
+     whose launch sets its shared-memory attribute (G = 64);
   4. time: kernels and plain version at the chatglm3-6b decode shape and
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
@@ -36,11 +39,16 @@ printing a result:
      bit-exact, p within 1 ULP); one whole-tree update of the training
      shape timed beside its bound, the plain version and
      ``torch._fused_adamw_`` (timed only);
-  7. serve: full-width chatglm3-6b (28 layers, d_model 4096, bf16, random
+  7. serve (every engine's steps compiled: a CUDA graph per step and
+     shape, captured at its first call, replayed at every later one):
+     full-width chatglm3-6b (28 layers, d_model 4096, bf16, random
      seeded weights) through ``repro_torch.launch.serve.serve`` with the
      fused decode step; the kernel must launch 28 * (gen - 1) times and
      every step's credit counter must read its threshold; then a profile
-     of a few warm decode steps: host wall per step vs device time by kind;
+     of a few warm decode steps: host wall per step vs device time by
+     kind, the host events and graph launches per step, back-to-back
+     replays' device time, capture seconds, the pool and peak memory
+     allocated and reserved with the graphs held;
      then the streaming path, ``serve_workload`` -> ``ContinuousBatcher``
      with the CLI's defaults (48 requests at 2e6 req/s, seed 0) on the
      wall-clock fabric with the fused decode step: the kernel must launch
@@ -49,16 +57,19 @@ printing a result:
      completed with in-range tokens; the same with the pipelined loop; a
      profile of warm decode steps at the streaming shape (S = 1040, four
      slot lengths); then the same trace at 4 layers in f32 on the
-     simulated fabric, fused, unfused and fused-pipelined: equal token
-     streams; then the MoE, SSM and hybrid families at full width through
+     simulated fabric, fused, unfused and fused-pipelined under
+     ``disable_compile()``, then fused and unfused compiled: equal token
+     streams and launches, every graph captured once and every step after
+     its first a replay; then the MoE, SSM and hybrid families at full width through
      the same ``serve_workload`` call (qwen3-moe-30b-a3b on the 48
      requests, mamba2-370m and zamba2-1.2b on the first 16; every earlier
      phase's weights freed first, memory printed before and after): every
      request admitted or rejected, every admitted one completed, the
      kernel launched once per attention layer per decode (none for
      mamba2); a profile of one qwen3-moe decode step at S = 1040 beside
-     the bound of the weights it reads; fused against unfused on the trace
-     in f32 at full width, qwen3-moe at 2 layers and zamba2's first group
+     the bound of the weights it reads; fused against unfused, and
+     compiled against ``disable_compile()``, on the trace in f32 at full
+     width, qwen3-moe at 2 layers, mamba2 at 4 and zamba2's first group
      (6 layers): equal token streams (the pipelined loop's, on the MoE,
      counted where they differ: ROADMAP C12);
   8. train: chatglm3-6b at full width, depth cut to 8 layers, through
@@ -100,8 +111,8 @@ printing a result:
      the stream trace's first 16 requests: DTensor params and caches, the
      fused kernel on local, slot-complete cache rows): counts, launches (28
      per decode step), credits, its decode step profiled beside phase 7's;
-     the trace at 4 layers f32 through the mesh, token for token the plain
-     path's; ``H100_SXM``'s predicted decode and prefill times beside the
+     the trace at 4 layers f32 through the mesh, compiled and under
+     ``disable_compile()``, token for token the plain path's; ``H100_SXM``'s predicted decode and prefill times beside the
      measured ones; and the dry runs, started as CPU processes after the build
      (chatglm3-6b and qwen3-moe-235b-a22b x decode_32k on 16x16,
      qwen3-moe-235b-a22b x train_4k on 2x16x16, and phase 7's streaming
@@ -117,6 +128,7 @@ once.  Full results also go to ``results/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -190,6 +202,11 @@ SCALAR_LOAD_CASES = [
     (("decode-unaligned-caches-q8", "chatglm3-6b", 4, 160, 32, 2, 128,
       "bf16", [19, 20, 79, 80], True, False, 0), 3),
 ]
+# A decode shape whose scores kernel needs more than 48 KiB of shared
+# memory ((G + 32) * (D + 1) floats at G = 64, D = 128: 49,536 B), so its
+# launch calls cudaFuncSetAttribute: held under graph capture.
+BIG_SMEM_CASE = ("decode-g64-captured", "chatglm3-6b", 2, 160, 64, 1, 128,
+                 "bf16", [5, 150], False, False, 0)
 # The streaming path: the CLI's default trace (``python -m
 # repro_torch.launch.serve``), and the depth of its fused-vs-unfused check.
 STREAM_REQUESTS, STREAM_RATE, STREAM_SEED = 48, 2e6, 0
@@ -201,7 +218,7 @@ STREAM_CHECK_LAYERS = 4
 MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("qwen3-moe-30b-a3b", "mamba2-370m",
                                    "zamba2-1.2b")
 FAMILY_REQUESTS = 16
-FAMILY_CHECK_LAYERS = {MOE_ARCH: 2, HYBRID_ARCH: 6}
+FAMILY_CHECK_LAYERS = {MOE_ARCH: 2, SSM_ARCH: 4, HYBRID_ARCH: 6}
 # The fleet and the co-design explorer: the explorer's paper space swept
 # serially and over EXPLORER_WORKERS processes; the co-design point's
 # headline gain at (M=32, N=1024) over the paper baseline (Fig. 1 right,
@@ -580,6 +597,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
     reads, undo = _record_credit_reads()
+    engines, undo_rec = _record_engines()
     try:
         DA.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -593,6 +611,9 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         launches = DA.LAUNCHES
     finally:
         undo()
+        undo_rec()
+    compiled = compile_report(engines, tag=tag)
+    del engines
     m, reqs = out["metrics"], out["requests"]
     threshold = credit_threshold()
     n_lengths = len({r.prompt_len for r in reqs})   # one warm-up each
@@ -651,7 +672,8 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
            "memory_allocated_before": mem_before,
            "memory_allocated_after": torch.cuda.memory_allocated(dev),
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-           "serve_wall_s": wall}
+           "max_memory_reserved": torch.cuda.max_memory_reserved(dev),
+           "compiled": compiled, "serve_wall_s": wall}
     card = card_line()
     log(f"[{tag}] {card}: {arch} full width ({cfg.num_layers} layers, "
         f"{cfg.param_count()} params, {cfg.dtype}), {requests} requests at "
@@ -678,17 +700,20 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         f"samples]: alpha {snap.alpha:.1f} beta {snap.beta:.4f} gamma "
         f"{snap.gamma:.4f} (cycles = ns), window MAPE "
         f"{'n/a' if mape is None else f'{mape:.2f}%'}; max_memory_allocated "
-        f"{gib(res['max_memory_allocated'])}, memory_allocated after "
+        f"{gib(res['max_memory_allocated'])}, max_memory_reserved "
+        f"{gib(res['max_memory_reserved'])}, memory_allocated after "
         f"{gib(res['memory_allocated_after'])}; wall {wall:.1f} s "
         f"(weights drawn on the card and the warm-up included)")
+    _log_compile(tag, compiled)
     return res
 
 
-def _tap_decodes():
-    """Record, per decode job, each row's next token and the smallest
-    margin between its k-th and (k+1)-th router logit over the step's MoE
-    layers (for the report of a token that differs).  Returns the record
-    and a function that undoes the wrapping."""
+def _tap_decodes(route: bool = True):
+    """Record, per decode job, each row's next token and, with ``route``,
+    the smallest margin between its k-th and (k+1)-th router logit over
+    the step's MoE layers (for the report of a token that differs; the
+    router runs in Python only in an eager step, so a compiled run taps no
+    route).  Returns the record and a function that undoes the wrapping."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.serve.batcher import ServingEngine
@@ -711,7 +736,9 @@ def _tap_decodes():
                              len(rec["margins"])))
         return pending
 
-    L.moe_route, ServingEngine.decode_async = tapped_route, tapped_decode
+    ServingEngine.decode_async = tapped_decode
+    if route:
+        L.moe_route = tapped_route
 
     def undo():
         L.moe_route, ServingEngine.decode_async = route, decode
@@ -744,9 +771,13 @@ def check_no_sync(dev) -> dict:
     ``prefill_into_slots_async`` and two ``decode_async`` run under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
     stream or device sync and on any blocking copy; then the steps are
-    awaited and their credits read."""
+    awaited and their credits read.  The warm calls captured the steps'
+    graphs, so the queued steps are replays (input copies, one graph
+    launch, output copies), and the decode kernel's count must grow by
+    its captured launches per replay: one per attention layer."""
     import numpy as np
     import torch
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.serve.batcher import ServingEngine
 
     # The mode catches a blocking copy (else the check below proves nothing).
@@ -773,6 +804,7 @@ def check_no_sync(dev) -> dict:
                                                 mask)
         tok, caches, _ = eng.decode(tok[:, None], caches, lens)
         torch.cuda.synchronize()
+        DA.LAUNCHES = 0
         torch.cuda.set_sync_debug_mode("error")
         try:
             pend = [eng.prefill_into_slots_async(tokens, caches, mask)]
@@ -784,12 +816,70 @@ def check_no_sync(dev) -> dict:
             torch.cuda.set_sync_debug_mode("default")
         for p in pend:
             eng.wait_step(p)      # raises if a credit count falls short
-        res[arch] = {"steps_queued": len(pend)}
-    log(f"[sync] prefill_into_slots_async and decode_async queued under "
-        f"set_sync_debug_mode('error') with no sync, on reduced "
+        n_attn = attention_layers(eng.cfg)
+        per_replay = eng._dec_jit.stats()[0]["launches_per_replay"]
+        if DA.LAUNCHES != 2 * n_attn or \
+                per_replay.get("decode_attention", 0) != n_attn:
+            raise AssertionError(f"{arch}: {DA.LAUNCHES} decode-kernel "
+                                 f"launches for two replays ({per_replay} "
+                                 f"per replay), expected 2 x {n_attn}")
+        res[arch] = {"steps_queued": len(pend), "replay_launches":
+                     DA.LAUNCHES, "graphs": len(eng.compiled_steps())}
+    log(f"[sync] prefill_into_slots_async and decode_async replayed their "
+        f"graphs under set_sync_debug_mode('error') with no sync, the decode "
+        f"kernel counted once per attention layer per replay, on reduced "
         f"{', '.join(NO_SYNC_ARCHS)} (the mode raised on a deliberate "
         f"blocking copy first)")
     return res
+
+
+def check_captured_kernel(dev, case=BIG_SMEM_CASE) -> dict:
+    """The decode kernel inside a captured graph: a ``CompiledStep`` of
+    ``fused_decode_attention`` with the caches static, at ``case`` (the
+    launch sets the scores kernel's shared-memory attribute and launches
+    on the capture stream).  Its first call runs eagerly and captures,
+    the second replays; each starts from the same caches, and its out
+    and caches must equal the plain version's one step from them, with
+    one launch counted per call."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.launch.compile import CompiledStep
+
+    name, *_, dt, _, _, _, _ = case
+    (q, k, v, kc, vc, idx, cos, sin, _, _), _ = make_inputs(case, 0, dev)
+    kc0, vc0 = kc.clone(), vc.clone()
+    step = CompiledStep(
+        lambda q, k, v, kc, vc, idx, cos, sin: {
+            "out": DA.fused_decode_attention(q, k, v, kc, vc, idx, cos,
+                                             sin)[0]},
+        device=dev, static_argnums=(3, 4), name=name)
+    want = DA.decode_attention_plain(q, k, v, kc0.clone(), vc0.clone(), idx,
+                                     cos, sin)
+    errs = []
+    for _ in range(2):
+        kc.copy_(kc0)
+        vc.copy_(vc0)
+        before = DA.LAUNCHES
+        got = step(q, k, v, kc, vc, idx, cos, sin)
+        torch.cuda.synchronize()
+        if DA.LAUNCHES - before != 1:
+            raise AssertionError(f"{name}: {DA.LAUNCHES - before} launches "
+                                 "counted for one call")
+        if not (torch.equal(kc, want[1]) and torch.equal(vc, want[2])):
+            raise AssertionError(f"{name}: caches differ from the plain "
+                                 "version's")
+        torch.testing.assert_close(got["out"], want[0], **TOL[dt],
+                                   msg=lambda m: f"{name}: out: {m}")
+        errs.append(float((got["out"].float() - want[0].float()).abs().max()))
+    [st] = step.stats()
+    if not st["captured"] or st["calls"] != 2:
+        raise AssertionError(f"{name}: {st}")
+    log(f"[capture] {name}: fused_decode_attention at G=64 (the scores "
+        f"kernel's shared memory above 48 KiB) captured in "
+        f"{st['capture_s']:.3f} s and replayed: out within {TOL[dt]} of the "
+        f"plain version (max abs err {max(errs):.3g}), caches bit-exact")
+    return {"case": name, "capture_s": st["capture_s"],
+            "max_abs_err": max(errs)}
 
 
 def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
@@ -798,10 +888,14 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
     """The streaming trace at full width, depth cut to ``layers``, f32, on
     the simulated fabric (a fixed schedule): fused and unfused decoding,
     and the fused pipelined loop, must give the same token stream for
-    every request.  If a token differs, the report names the decode step,
-    the row and the row's smallest top-k router margin.  With ``design``
-    (a swept co-design point) the fabric is that design's, and the
-    pipelined loop is left out.
+    every request.  These three run eagerly (``disable_compile()``); the
+    fused and unfused runs are then repeated with the engine's compiled
+    steps (a CUDA graph per step and shape, captured at its first call and
+    replayed at every later one), which must give the eager runs' streams
+    and kernel launches.  If a token differs, the report names the decode
+    step, the row and the row's smallest top-k router margin.  With
+    ``design`` (a swept co-design point) the fabric is that design's, and
+    the pipelined loop is left out.
 
     One exception, for an MoE: the pipelined loop batches other requests
     together, and with one routing group a batch's rows share the
@@ -810,39 +904,55 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
     equal."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.launch.compile import disable_compile
     from repro_torch.models import init_params
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
     cfg = replace(get_config(arch), num_layers=layers, dtype="float32")
     n_attn = attention_layers(cfg)
     params = init_params(cfg, seed=0, device=dev)   # serving leaves it as is
-    runs = {"fused": (True, False), "unfused": (False, False)}
+    # name: (fused, pipelined, compiled, the eager run it must equal)
+    runs = {"fused": (True, False, False, "fused"),
+            "unfused": (False, False, False, "fused")}
     if design is None:
-        runs["fused-pipelined"] = (True, True)
-    streams, plans, launches, taps = {}, {}, {}, {}
-    for name, (fused, pipeline) in runs.items():
+        runs["fused-pipelined"] = (True, True, False, "fused")
+    runs["fused-compiled"] = (True, False, True, "fused")
+    runs["unfused-compiled"] = (False, False, True, "unfused")
+    streams, plans, launches, taps, compiled = {}, {}, {}, {}, {}
+    for name, (fused, pipeline, comp, _) in runs.items():
         DA.LAUNCHES = 0
-        taps[name], undo = _tap_decodes()
+        taps[name], undo = _tap_decodes(route=not comp)
+        engines, undo_rec = _record_engines()
         try:
-            out = serve_workload(stream_spec(), config=ServeConfig(
-                arch=cfg, reduced=False, fused_decode=fused,
-                fabric="simulated", pipeline=pipeline, device=dev,
-                params=params, design=design))
+            with (contextlib.nullcontext() if comp else disable_compile()):
+                out = serve_workload(stream_spec(), config=ServeConfig(
+                    arch=cfg, reduced=False, fused_decode=fused,
+                    fabric="simulated", pipeline=pipeline, device=dev,
+                    params=params, design=design))
         finally:
             undo()
+            undo_rec()
         launches[name] = DA.LAUNCHES
         streams[name] = {r.rid: r.generated.tolist() for r in out["requests"]
                          if r.state is RequestState.DONE}
         plans[name] = [(p.kind, p.n_elems, p.m) for p in out["plans"]]
+        if comp:
+            compiled[name] = compile_report(engines, out["plans"],
+                                            f"{arch} {name}")
+        del out, engines
     if plans["fused"] != plans["unfused"] or not streams["fused"]:
         raise AssertionError(f"{arch}: the simulated schedule differs "
                              "between runs")
     coupled = {}      # the pipelined run's differing requests (an MoE)
     for name in [n for n in runs if n != "fused"]:
-        if streams[name].keys() != streams["fused"].keys():
+        base = runs[name][3]
+        if plans[name] != plans[base] and runs[name][2]:
+            raise AssertionError(f"{arch} {name}: the simulated schedule "
+                                 f"differs from the {base} run's")
+        if streams[name].keys() != streams[base].keys():
             raise AssertionError(f"{arch} {name}: other requests completed")
-        bad = [rid for rid in streams["fused"]
-               if streams[name][rid] != streams["fused"][rid]]
+        bad = [rid for rid in streams[base]
+               if streams[name][rid] != streams[base][rid]]
         if bad and name == "fused-pipelined" and cfg.num_experts:
             coupled = {"requests": bad}
             log(f"[stream-check] {arch}: the pipelined loop's streams differ "
@@ -852,8 +962,12 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
                 f"C12)")
         elif bad:
             raise AssertionError(
-                f"{arch}: fused and {name} token streams differ for requests "
-                f"{bad}; {_first_difference(taps['fused'], taps[name])}")
+                f"{arch}: {base} and {name} token streams differ for "
+                f"requests {bad}; "
+                f"{_first_difference(taps[base], taps[name])}")
+        if runs[name][2] and launches[name] != launches[base]:
+            raise AssertionError(f"{arch} {name}: {launches[name]} kernel "
+                                 f"launches, the eager run {launches[base]}")
     # Every decode step runs on the engine, offloaded or kept on the host.
     for name in runs:
         steps = sum(p[0] == "decode" for p in plans[name])
@@ -874,11 +988,13 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
         f"{launches}"
         + ("" if smallest is None else
            f"; smallest decode-row top-k router margin {smallest:.3e}") + ")")
+    for name, rep in compiled.items():
+        _log_compile(f"stream-check] [{arch} {name}", rep)
     return {"arch": arch, "layers": layers, "dtype": "float32",
             "design": None if design is None else design.name,
             "requests": len(streams["fused"]), "tokens": n_tok,
             "launches": launches, "smallest_router_margin": smallest,
-            "pipelined_differs_c12": coupled}
+            "pipelined_differs_c12": coupled, "compiled": compiled}
 
 
 # --------------------------------------------------------------------------- #
@@ -905,6 +1021,66 @@ def _record_credit_reads():
     def undo():
         CreditCounterSync.wait = wait
     return reads, undo
+
+
+def _record_engines():
+    """Record every ``ServingEngine`` built from here on; returns the list
+    and an undo."""
+    from repro_torch.serve.batcher import ServingEngine
+
+    engines, init = [], ServingEngine.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        engines.append(self)
+
+    ServingEngine.__init__ = recording_init
+
+    def undo():
+        ServingEngine.__init__ = init
+    return engines, undo
+
+
+def compile_report(engines, plans=None, tag: str = "") -> dict:
+    """What the engines' compiled steps did: one graph per step and key,
+    each captured at its first call and replayed at every later one, with
+    the capture seconds and the pool's growth.  With ``plans`` (a run on
+    the simulated fabric, whose every plan runs on the engine), the decode
+    and prefill calls must equal the run's decode and prefill steps."""
+    stats = [st for eng in engines for step in eng.compiled_steps()
+             for st in step.stats()]
+    missed = [st["step"] for eng in engines for step in eng.compiled_steps()
+              for st in step.stats()
+              if eng.device.type == "cuda" and not st["captured"]]
+    if missed:
+        raise AssertionError(f"{tag}: compiled steps not captured: {missed}")
+    calls = {"decode": 0, "prefill": 0}
+    for st in stats:
+        calls["decode" if st["step"] == "decode" else "prefill"] += st["calls"]
+    if plans is not None:
+        want = {k: sum(p.kind == k for p in plans) for k in calls}
+        if calls != want:
+            raise AssertionError(f"{tag}: compiled steps called {calls}, "
+                                 f"the run has {want} steps")
+    return {"graphs": len(stats), "calls": calls,
+            "replays": sum(st["calls"] - 1 for st in stats),
+            "capture_s": {st["step"]: st["capture_s"] for st in stats},
+            "capture_s_total": sum(st["capture_s"] for st in stats),
+            "pool_bytes": sum(st["pool_bytes"] for st in stats),
+            "pool_bytes_by_step": {st["step"]: st["pool_bytes"]
+                                   for st in stats},
+            "launches_per_replay": {st["step"]: st["launches_per_replay"]
+                                    for st in stats}}
+
+
+def _log_compile(tag: str, rep: dict) -> None:
+    log(f"[{tag}] compiled steps: {rep['graphs']} graphs captured in "
+        f"{rep['capture_s_total']:.2f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in rep["capture_s"].items())
+        + f"), {rep['replays']} replays; calls {rep['calls']}; pool "
+        f"{gib(rep['pool_bytes'])} ("
+        + ", ".join(f"{k} +{gib(v)}" for k, v in
+                    rep["pool_bytes_by_step"].items()) + ")")
 
 
 def _check_requests(reqs, vocab: int, tag: str) -> None:
@@ -1321,7 +1497,12 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
                   lens=None, tag="profile", arch=ARCH, mesh=None) -> dict:
     """Where a full-width decode step's time goes: host wall per step vs
     device time by kernel kind (torch.profiler over a few warm steps),
-    beside the least time the step's weight reads take.
+    beside the least time the step's weight reads take.  The engine's
+    steps are compiled: the first decode captures its graph, the later
+    ones replay it.  The report adds the host ops the profiler saw per
+    step and its graph launches, the device time of back-to-back replays
+    (CUDA events), each graph's capture seconds, the pool's growth and
+    the memory allocated and reserved with the graphs held.
 
     ``lens`` (one per slot) decodes each slot at its own length, as the
     streaming path does; by default every slot decodes at ``prompt_len``
@@ -1332,6 +1513,7 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
 
     from repro_torch.serve.batcher import ServingEngine
 
+    torch.cuda.reset_peak_memory_stats(dev)
     eng = ServingEngine(arch, reduced=False, max_batch=4, max_len=max_len,
                         fused_decode=True, device=dev, mesh=mesh,
                         mesh_shape=(1, 1) if mesh is None
@@ -1342,9 +1524,12 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
     tok, caches, _ = eng.prefill(prompt)
     pos = (np.full(4, prompt_len, np.int32) if lens is None
            else np.asarray(lens, np.int32))
-    walls = []
+    walls, queue = [], []
     for _ in range(warm):
-        tok, caches, w = eng.decode(tok[:, None], caches, pos)
+        t0 = time.perf_counter()
+        pend = eng.decode_async(tok[:, None], caches, pos)
+        queue.append(time.perf_counter() - t0)
+        tok, caches, w = eng.wait_step(pend)
         walls.append(w)
         pos = pos + 1
     prof_walls = []
@@ -1355,9 +1540,13 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
             prof_walls.append(w)
             pos = pos + 1
     by_kind = {"decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    n_attn, top = 0, []
+    n_attn, top, host_ops, graph_launches, launch_us = 0, [], 0, 0, 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host_ops += e.count
+            if "cudaGraphLaunch" in e.key:
+                graph_launches += e.count
+                launch_us += e.cpu_time_total
             continue   # host ops also carry their kernels' device time
         us = _device_us(e)
         if us > 0:
@@ -1366,6 +1555,19 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
             if _kind(e.key) == "decode_attention":
                 n_attn += e.count
     top.sort(reverse=True)
+    replay_ms = None
+    graphs = eng._dec_jit.graphs()
+    if graphs:
+        # Back-to-back replays of the decode graph, no host in between.
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(steps):
+            graphs[0].replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / steps
+    compiled = compile_report([eng], tag=tag)
     wall_ms = statistics.median(walls) * 1e3
     # Busy and wall time both of the profiled steps.
     prof_wall_ms = sum(prof_walls) / steps * 1e3
@@ -1380,7 +1582,18 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
            "device_ms_per_step": by_kind,
            "device_busy_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / prof_wall_ms if busy_ms else None,
+           "idle_share_unprofiled":
+               1.0 - busy_ms / wall_ms if busy_ms else None,
+           "host_queue_ms_median": statistics.median(queue) * 1e3,
            "attention_kernels_per_step": n_attn / steps,
+           "host_ops_per_step": host_ops / steps,
+           "graph_launches_per_step": graph_launches / steps,
+           "graph_launch_host_ms": launch_us / 1e3 / steps,
+           "graph_replay_device_ms": replay_ms, "compiled": compiled,
+           "memory_allocated": torch.cuda.memory_allocated(dev),
+           "memory_reserved": torch.cuda.memory_reserved(dev),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "max_memory_reserved": torch.cuda.max_memory_reserved(dev),
            "top_kernels_ms_calls_name": top[:10]}
     if busy_ms == 0:
         log(f"[{tag}] torch.profiler saw no device time")
@@ -1393,6 +1606,19 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
         f"({n_attn / steps:.0f} attention kernel launches per step, two "
         f"per call); idle share "
         f"{res['idle_share']}")
+    log(f"[{tag}] {card_line()}: queueing a step (placement, input "
+        f"copies, replay, output copies) {res['host_queue_ms_median']:.3f} "
+        f"ms of host time (median of {warm}); idle share against the "
+        f"unprofiled step {res['idle_share_unprofiled']}")
+    log(f"[{tag}] {card_line()}: {res['host_ops_per_step']:.0f} host events "
+        f"and {res['graph_launches_per_step']:.0f} cudaGraphLaunch "
+        f"({res['graph_launch_host_ms']:.3f} ms of host time) per "
+        f"profiled step; back-to-back replays of the decode graph "
+        f"{replay_ms} ms of device time each (CUDA events); "
+        f"max_memory_allocated {gib(res['max_memory_allocated'])}, "
+        f"max_memory_reserved {gib(res['max_memory_reserved'])} with the "
+        f"graphs held")
+    _log_compile(tag, compiled)
     log(f"[{tag}] bound: {wb['weight_bytes']} B of weights read once per "
         f"step / 3.35 TB/s = {wb['bound_ms']:.3f} ms"
         + (f" (the experts' {wb['expert_bytes']} B alone: "
@@ -2130,12 +2356,16 @@ def planner_vs_card(results, launch: dict, prefill_s: float) -> dict:
     return out
 
 
-def _token_streams(dev, params, cfg, mesh=None) -> dict:
+def _token_streams(dev, params, cfg, mesh=None, compiled=True) -> dict:
+    """The stream trace's token streams on the simulated fabric, with the
+    engine's compiled steps or under ``disable_compile()``."""
+    from repro_torch.launch.compile import disable_compile
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
-    out = serve_workload(stream_spec(), config=ServeConfig(
-        arch=cfg, reduced=False, fused_decode=True, fabric="simulated",
-        device=dev, params=params, mesh=mesh,
-        mesh_shape=(1, 1) if mesh is None else tuple(mesh.shape)))
+    with contextlib.nullcontext() if compiled else disable_compile():
+        out = serve_workload(stream_spec(), config=ServeConfig(
+            arch=cfg, reduced=False, fused_decode=True, fabric="simulated",
+            device=dev, params=params, mesh=mesh,
+            mesh_shape=(1, 1) if mesh is None else tuple(mesh.shape)))
     return {r.rid: r.generated.tolist() for r in out["requests"]
             if r.state is RequestState.DONE}
 
@@ -2186,19 +2416,23 @@ def phase_mesh(dev, results) -> dict:
             dev, max_len=s_len, prompt_len=256,
             lens=[256, 511, 767, s_len - 17], tag="mesh-profile", mesh=mesh)
         meshed = _token_streams(dev, params4, cfg4, mesh=mesh)
+        meshed_eager = _token_streams(dev, params4, cfg4, mesh=mesh,
+                                      compiled=False)
     finally:
         layers._on_batch_shards = inner
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
-    bad = [rid for rid in plain if meshed.get(rid) != plain[rid]]
-    if bad or meshed.keys() != plain.keys() or not plain:
-        raise AssertionError(f"mesh and plain token streams differ for "
-                             f"requests {bad}")
+    for name, streams in (("mesh", meshed), ("mesh eager", meshed_eager)):
+        bad = [rid for rid in plain if streams.get(rid) != plain[rid]]
+        if bad or streams.keys() != plain.keys() or not plain:
+            raise AssertionError(f"{name} and plain token streams differ "
+                                 f"for requests {bad}")
     res["tokens_equal"] = {"requests": len(plain),
                            "tokens": sum(map(len, plain.values()))}
     pp, mp = results["stream_profile"], res["profile"]
-    log(f"[mesh] {card_line()}: 4 layers f32, simulated fabric: mesh and "
-        f"plain token streams equal for {len(plain)} requests "
+    log(f"[mesh] {card_line()}: 4 layers f32, simulated fabric: mesh "
+        f"(compiled), mesh under disable_compile() and plain (compiled) "
+        f"token streams equal for {len(plain)} requests "
         f"({res['tokens_equal']['tokens']} tokens)")
     log(f"[mesh] {card_line()}: decode step at S={results['stream']['max_len']}"
         f": plain host {pp['step_wall_ms_median']:.3f} ms / device busy "
@@ -2287,8 +2521,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     for cases in family_cases.values():
         results["checks"] += [check_case(c, 0, dev) for c in cases]
 
-    # The engine queues its steps without a host sync.
+    # The engine queues its steps without a host sync; the kernel under
+    # graph capture.
     results["no_sync"] = check_no_sync(dev)
+    results["captured_kernel"] = check_captured_kernel(dev)
     free()
 
     # 4. Timing at the full decode shape.

@@ -37,4 +37,7 @@ def all_configs() -> dict[str, ModelConfig]:
     return {a: get_config(a) for a in ARCH_IDS}
 
 
-__all__ = ["ARCH_IDS", "get_config", "all_configs"]
+from .shapes import SHAPE_NAMES, input_specs, shape_applicable  # noqa: E402
+
+__all__ = ["ARCH_IDS", "get_config", "all_configs", "SHAPE_NAMES",
+           "input_specs", "shape_applicable"]

@@ -135,6 +135,29 @@ class SequentialDispatcher:
                                   bytes_moved=_leaf_bytes(tree))
 
 
+def replicated_sharding(mesh) -> tuple:
+    """The multicast target: every device of ``mesh`` holds the full
+    operand (DTensor placements, one per mesh dim)."""
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * mesh.ndim
+
+
+def batch_sharding(mesh, axis: str = "data") -> tuple:
+    """Data-parallel batch placement: dim 0 split over ``axis`` of
+    ``mesh`` (DTensor placements, one per mesh dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    if axis not in names:
+        raise ValueError(f"the mesh's axes {names} have no {axis!r}")
+    return tuple(Shard(0) if n == axis else Replicate() for n in names)
+
+
+DISPATCHERS = {
+    "multicast": MulticastDispatcher,
+    "sequential": SequentialDispatcher,
+}
+
+
 def _leaf_bytes(tree: Any) -> int:
     return sum(np.asarray(x).nbytes for x in pytree.tree_leaves(tree))
 

@@ -18,7 +18,7 @@ incremented it — O(1).
 from __future__ import annotations
 
 import time
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
@@ -69,6 +69,16 @@ def emit_credits(outputs: Any, mesh=None) -> torch.Tensor:
     return one.sum().full_tensor()   # the all-reduce: a replicated scalar
 
 
+def attach_credits(step_fn: Callable, mesh=None) -> Callable:
+    """Wrap a step function so it also returns the credit scalar."""
+
+    def wrapped(*args, **kwargs):
+        out = step_fn(*args, **kwargs)
+        return out, emit_credits(out, mesh)
+
+    return wrapped
+
+
 class CreditCounterSync:
     """Host side of the credit counter: one blocking read of one scalar."""
 
@@ -113,3 +123,5 @@ class PollingSync:
     def host_interactions(self) -> int:
         return 1
 
+
+SYNCS = {"credit_counter": CreditCounterSync, "polling": PollingSync}

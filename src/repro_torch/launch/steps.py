@@ -2,7 +2,10 @@
 credits.
 
 The port of ``repro/launch/steps.py``.  Each factory returns a plain
-function; PyTorch runs eagerly, so there is nothing to compile.  Given a
+function that runs eagerly.  Compiling is the caller's: the serving engine
+wraps each step in a ``launch.compile.CompiledStep`` (one CUDA graph per
+input shape, as the reference's ``jax.jit`` keeps one executable), with
+the parameters and its own caches as the static arguments.  Given a
 ``DeviceMesh`` (``mesh=``), a step runs the same model code on DTensors:
 its inputs are placed by ``runtime.sharding``'s specs (a leaf that is
 already a DTensor is taken as it is), the model applies the reference's
@@ -21,7 +24,8 @@ The serving steps return ``{"next_token", "caches", "credits"}``:
 
   * ``next_token`` is the greedy argmax of the last position's logits;
   * ``caches`` are updated in place — the counterpart of the reference's
-    ``donate_argnums`` — and returned;
+    ``donate_argnums`` — and returned, so a compiled step's caches stay at
+    their addresses from one replay to the next;
   * ``credits`` is the credit-counter scalar (``core.sync.emit_credits``):
     the host blocks on those 4 bytes alone to learn the step is done and
     its outputs are finite.
@@ -54,9 +58,10 @@ class StepBundle:
 
     ``in_shardings`` are spec trees (``PartitionSpec`` leaves) over
     ``meta["mesh"]``; ``abstract_args`` are meta tensors.  The reference's
-    ``out_shardings`` and ``donate_argnums`` have no counterpart: a step's
-    outputs take the placements its ops give them, and the arguments it
-    updates are updated in place.
+    ``out_shardings`` have no counterpart: a step's outputs take the
+    placements its ops give them.  Nor has ``donate_argnums``: the
+    arguments a step updates are updated in place, and a
+    ``CompiledStep`` holds them as static arguments at fixed addresses.
     """
 
     fn: Any
@@ -166,14 +171,29 @@ def _model_inputs(batch):
             else {"tokens": batch["tokens"]})
 
 
+def zero_caches(caches):
+    """Zero every leaf of ``caches`` in place; returns ``caches``."""
+    for leaf in pytree.tree_leaves(caches):
+        leaf.zero_()
+    return caches
+
+
 def make_prefill_step(cfg: ModelConfig, batch_size: int, *, max_len: int,
                       device: torch.device, mesh=None):
-    """``fn(params, batch) -> step outputs`` over fresh caches."""
+    """``fn(params, batch, caches=None) -> step outputs``.
+
+    Without ``caches`` the step fills fresh ones.  With them (a serving
+    engine's own, which its compiled step holds at fixed addresses) it
+    zeroes them and fills them in place, the same values.
+    """
     ctx = _ctx(mesh)
 
-    def prefill_step(params, batch):
+    def prefill_step(params, batch, caches=None):
         batch = _placed_batch(batch, mesh)
-        caches = _fresh_caches(cfg, batch_size, max_len, device, mesh)
+        if caches is None:
+            caches = _fresh_caches(cfg, batch_size, max_len, device, mesh)
+        else:
+            zero_caches(caches)
         logits, caches = model_prefill(params, cfg, caches=caches, ctx=ctx,
                                        **_model_inputs(batch))
         with ctx.scope():

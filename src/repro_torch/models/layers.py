@@ -43,7 +43,8 @@ from repro_torch.runtime.flags import baseline_mode
 from .config import ModelConfig
 
 __all__ = ["ShardCtx", "NO_SHARD", "rms_norm", "gated_rms_norm",
-           "rope_cos_sin", "apply_rope", "NEG_INF", "chunked_attention", "decode_attention", "quantize_kv",
+           "rope_cos_sin", "apply_rope", "NEG_INF", "repeat_kv",
+           "chunked_attention", "decode_attention", "quantize_kv",
            "dequantize_kv", "attention_block", "mlp_block", "moe_capacity",
            "moe_route", "moe_block", "ssd_chunked", "mamba_block"]
 
@@ -281,6 +282,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Attention (GQA, causal, optional sliding window, flash-style chunking)
 # --------------------------------------------------------------------------- #
+def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, K, D) -> (B, S, H, D), each KV head repeated H/K times in
+    K-major order (q head h reads KV head h // rep)."""
+    rep = num_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset: int = 0, window: int = 0,
                       kv_chunk: int = 1024) -> torch.Tensor:

@@ -21,9 +21,10 @@ methods, arguments and return values, with these differences:
     drawn from a ``torch.Generator`` seeded with ``param_seed``;
   * ``device=`` selects the card (default ``"cuda"``) or the CPU;
   * ``arch`` may be a ``ModelConfig`` instead of an arch id;
-  * caches are updated in place: a step's returned caches are the tensors
-    it was given.  ``ContinuousBatcher`` chains each step on the caches
-    the previous one returned, which in-place updates preserve;
+  * the engine owns its caches: they are allocated once, ``init_caches``
+    zeroes them and returns them, every step updates them in place and
+    returns them, and a step handed other caches raises.  They are the
+    compiled steps' donated buffers, so they never move;
   * ``mesh_shape`` (the reference's) other than ``(1, 1)`` builds a
     ``DeviceMesh`` over the caller's ``torch.distributed`` process group,
     and ``mesh=`` takes one the caller built (a 1x1 mesh, say): params and
@@ -33,6 +34,15 @@ methods, arguments and return values, with these differences:
     the engine is the plain one-device path, whatever process group is
     initialised, and runs no DTensor op.
 
+The steps are compiled as the reference's are (``launch.compile``): one
+``CompiledStep`` for the decode step and one per prompt length for each
+prefill (the reference's ``_dec_jit``, ``_prefill_jit`` and
+``_slot_prefill_jit``), with the parameters and the engine's caches as
+static arguments.  On the card the first call of each captures a CUDA
+graph and every later call copies its inputs in and replays it;
+``warmup`` makes those first calls.  On the CPU the same steps run
+eagerly on their static buffers.
+
 Every step of one engine is queued on one CUDA stream, so the pipelined
 loop's refill prefill, queued behind the decode it overlaps, runs after
 that decode on the card, and the decode's credit read (a copy queued after
@@ -40,7 +50,8 @@ both) waits for the prefill too.  The loop's tokens are those of the
 sequential loops all the same.  Queueing a step never syncs the host:
 every input crosses in one pinned ``non_blocking`` copy on the
 dispatcher's copy stream, the prompt tokens' timed placement waits for
-that copy alone, and the slot merge picks rows on the card.
+that copy alone, the copy into a graph's input buffers is queued on the
+compute stream behind it, and the slot merge picks rows on the card.
 """
 
 from __future__ import annotations
@@ -54,10 +65,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.dispatch import MulticastDispatcher
 from repro_torch.core.sync import CreditCounterSync, FaultDetected
+from repro_torch.launch.compile import CompiledStep
 from repro_torch.launch.device import resolve_device
 from repro_torch.launch.mesh import host_mesh
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                      make_slot_prefill_step)
+                                      make_slot_prefill_step, zero_caches)
 from repro_torch.core import simulator as sim
 from repro_torch.kernels.ops import get_kernel
 from repro_torch.models import (ModelConfig, init_cache, init_params,
@@ -88,11 +100,11 @@ class PendingStep:
     ``done`` an event recorded after its last kernel.  Blocking happens in
     ``ServingEngine.wait_step``.
 
-    ``launch_s`` is the host time spent queueing the step's kernels.  In
-    the reference one jitted call queues the whole step in microseconds;
-    here every op is queued from Python, which takes as long as or longer
-    than the card's work, so the credit wait alone would miss most of the
-    step.
+    ``launch_s`` is the host time spent queueing the step's kernels: a
+    graph's input copies, its replay and its output copies, or, for a
+    step's first call and under ``disable_compile()``, every op queued
+    from Python, which takes as long as or longer than the card's work.
+    The credit wait alone would miss that part of the step.
     """
 
     out: dict
@@ -102,8 +114,8 @@ class PendingStep:
 
 
 class ServingEngine:
-    """Prefill/decode steps over ``max_batch`` request slots on one device,
-    or on a ``DeviceMesh`` (``mesh_shape``)."""
+    """Compiled prefill/decode steps over ``max_batch`` request slots on one
+    device, or on a ``DeviceMesh`` (``mesh_shape``)."""
 
     def __init__(self, arch: str | ModelConfig, *, reduced: bool = True,
                  max_batch: int = 4, max_len: int = 64, mesh_shape=(1, 1),
@@ -131,16 +143,61 @@ class ServingEngine:
             self.params = to_shardings(
                 self.params, param_specs(self.params, cfg, self.mesh),
                 self.mesh)
+        # The live caches: the compiled steps' donated buffers, allocated
+        # once, before and outside any capture.
+        self._caches = init_cache(cfg, max_batch, max_len=max_len,
+                                  device=self.device)
+        if self.mesh is not None:
+            self._caches = to_shardings(
+                self._caches, cache_specs(self._caches, cfg, self.mesh),
+                self.mesh)
+        #: One memory pool for all of this engine's graphs.
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
         kw = {"max_len": max_len, "device": self.device, "mesh": self.mesh}
-        self._prefill = make_prefill_step(cfg, max_batch, **kw)
-        self._slot_prefill = make_slot_prefill_step(cfg, max_batch, **kw)
-        self._decode = make_decode_step(cfg, fused=fused_decode,
-                                        mesh=self.mesh)
+        self._prefill_fn = make_prefill_step(cfg, max_batch, **kw)
+        self._slot_prefill_fn = make_slot_prefill_step(cfg, max_batch, **kw)
+        self._prefill_jit: dict[int, CompiledStep] = {}   # prompt_len -> step
+        self._slot_prefill_jit: dict[int, CompiledStep] = {}
+        self._dec_jit = self._compiled(
+            make_decode_step(cfg, fused=fused_decode, mesh=self.mesh),
+            "decode")
+
+    def _compiled(self, fn, name: str) -> CompiledStep:
+        """``fn(params, x, caches, ...)`` compiled with the parameters and
+        the caches static."""
+        return CompiledStep(fn, device=self.device, static_argnums=(0, 2),
+                            pool=self.pool, name=name)
+
+    def _get_prefill(self, prompt_len: int) -> CompiledStep:
+        if prompt_len not in self._prefill_jit:
+            self._prefill_jit[prompt_len] = self._compiled(
+                self._prefill_fn, f"prefill[{prompt_len}]")
+        return self._prefill_jit[prompt_len]
+
+    def _get_slot_prefill(self, prompt_len: int) -> CompiledStep:
+        if prompt_len not in self._slot_prefill_jit:
+            self._slot_prefill_jit[prompt_len] = self._compiled(
+                self._slot_prefill_fn, f"slot_prefill[{prompt_len}]")
+        return self._slot_prefill_jit[prompt_len]
+
+    def compiled_steps(self) -> list[CompiledStep]:
+        """Every compiled step of this engine: decode, then the prefills."""
+        return [self._dec_jit, *self._prefill_jit.values(),
+                *self._slot_prefill_jit.values()]
+
+    def _own(self, caches):
+        if caches is not self._caches:
+            raise ValueError("a step runs on this engine's caches only: "
+                             "pass those init_caches() or the previous "
+                             "step returned")
+        return caches
 
     def _launch(self, step, *args, dispatch_s: float = 0.0) -> PendingStep:
         """Queue ``step(*args)`` and time the queueing."""
         t0 = time.perf_counter()
         out = step(*args)
+        out["caches"] = self._caches      # the engine's own, as passed
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -149,40 +206,38 @@ class ServingEngine:
                            launch_s=time.perf_counter() - t0, done=done)
 
     def init_caches(self):
-        """Fresh zeroed decode caches for the slot-managed serving loop."""
-        caches = init_cache(self.cfg, self.max_batch, max_len=self.max_len,
-                            device=self.device)
-        if self.mesh is None:
-            return caches
-        return to_shardings(caches, cache_specs(caches, self.cfg, self.mesh),
-                            self.mesh)
+        """The engine's decode caches, zeroed, for the slot-managed loop."""
+        return zero_caches(self._caches)
 
     def prefill(self, tokens: np.ndarray, metrics=None):
         """tokens (max_batch, L) int32 -> (next_token (B,), caches, wall_s).
 
-        ``wall_s`` is the measured offload time of the step: the multicast
-        placement seconds, the kernel-queueing seconds and the
-        credit-counter blocking wait.
+        The prefill fills the engine's caches afresh.  ``wall_s`` is the
+        measured offload time of the step: the multicast placement
+        seconds, the kernel-queueing seconds and the credit-counter
+        blocking wait.
         """
-        placed, dstats = self.dispatcher.timed_put(
-            np.asarray(tokens, np.int32), self.device)
+        tokens = np.asarray(tokens, np.int32)
+        step = self._get_prefill(tokens.shape[1])
+        placed, dstats = self.dispatcher.timed_put(tokens, self.device)
         if metrics is not None:
             metrics.record_dispatch(dstats)
         return self.wait_step(self._launch(
-            self._prefill, self.params, {"tokens": placed},
+            step, self.params, {"tokens": placed}, self._caches,
             dispatch_s=dstats.seconds))
 
     def prefill_into_slots_async(self, tokens: np.ndarray, caches,
                                  slot_mask: np.ndarray,
                                  metrics=None) -> PendingStep:
         """Launch a prefill-into-slots step without blocking on it."""
-        placed, dstats = self.dispatcher.timed_put(
-            np.asarray(tokens, np.int32), self.device)
+        tokens = np.asarray(tokens, np.int32)
+        step = self._get_slot_prefill(tokens.shape[1])
+        placed, dstats = self.dispatcher.timed_put(tokens, self.device)
         if metrics is not None:
             metrics.record_dispatch(dstats)
         mask = self.dispatcher.put(np.asarray(slot_mask, bool), self.device)
-        return self._launch(self._slot_prefill, self.params,
-                            {"tokens": placed}, caches, mask,
+        return self._launch(step, self.params, {"tokens": placed},
+                            self._own(caches), mask,
                             dispatch_s=dstats.seconds)
 
     def prefill_into_slots(self, tokens: np.ndarray, caches,
@@ -195,12 +250,15 @@ class ServingEngine:
     def warmup(self, prompt_lens, *, slots: bool = False) -> None:
         """Run every prompt-length bucket (and the decode step) once.
 
-        On the card the first call of each shape pays one-time costs (the
-        kernel build, cuBLAS handles and heuristics); a wall-clock
-        calibration should not see them.  Decoding zero tokens may give
-        non-finite logits, so a fault here is ignored.
+        The first call of each compiled step runs it eagerly and captures
+        its graph; on the card it also pays the kernel build, cuBLAS
+        handles and heuristics.  A wall-clock calibration should see none
+        of that.  The longest prompt goes first, so the shorter prefills'
+        captures reuse its transients in the engine's graph pool.
+        Decoding zero tokens may give non-finite logits, so a fault here is
+        ignored.
         """
-        for length in sorted(set(prompt_lens)):
+        for length in sorted(set(prompt_lens), reverse=True):
             tokens = np.zeros((self.max_batch, length), np.int32)
             if slots:
                 caches = self.init_caches()
@@ -222,7 +280,8 @@ class ServingEngine:
             lens = np.full((self.max_batch,), int(lens), np.int32)
         tok_t, lens_t = self.dispatcher.put((np.asarray(tok, np.int32), lens),
                                             self.device)
-        return self._launch(self._decode, self.params, tok_t, caches, lens_t)
+        return self._launch(self._dec_jit, self.params, tok_t,
+                            self._own(caches), lens_t)
 
     def decode(self, tok: np.ndarray, caches, lens):
         """tok (max_batch, 1) int32 -> (next_token (B,), caches, wall_s).

@@ -12,7 +12,12 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
     bytes, caches off a 16-byte boundary), and qwen3-moe's and zamba2's
     streaming shapes: caches bit-exact, out within chip_smoke.py's ``TOL``;
   * the serving engine queues a prefill-into-slots step and decode steps
-    with no host sync (``torch.cuda.set_sync_debug_mode("error")``).
+    with no host sync (``torch.cuda.set_sync_debug_mode("error")``): graph
+    replays, each adding its captured decode-kernel launches;
+  * the engine's compiled steps (CUDA graphs) give the token streams of the
+    same calls under ``disable_compile()`` (chatglm3-6b fused and unfused,
+    qwen3-moe-30b-a3b, mamba2-370m, 2 layers at full width, f32), count
+    the decode kernel per replay, and a capture that fails raises.
 
 This file imports neither jax nor the reference package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -127,3 +132,55 @@ def test_engine_queues_steps_without_a_host_sync(card):
     set_sync_debug_mode("error") (dense, MoE and hybrid, reduced)."""
     res = SMOKE.check_no_sync(card)
     assert set(res) == set(SMOKE.NO_SYNC_ARCHS)
+
+
+# --------------------------------------------------------------------------- #
+# The serving engine's compiled steps (CUDA graphs)
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [SMOKE.ARCH, SMOKE.MOE_ARCH, SMOKE.SSM_ARCH])
+def test_compiled_engine_gives_the_eager_tokens(card, arch):
+    """The stream trace at full width, 2 layers, f32: the engine's replayed
+    graphs give the token streams and decode-kernel launches of the same
+    calls under disable_compile(), fused and unfused."""
+    res = SMOKE.phase_stream_fused_vs_unfused(card, arch, 2)
+    assert set(res["compiled"]) == {"fused-compiled", "unfused-compiled"}
+    assert all(rep["replays"] > 0 for rep in res["compiled"].values())
+
+
+@pytest.mark.cuda
+def test_decode_launches_are_counted_per_replay(card):
+    import numpy as np
+    from repro_torch.serve import ServingEngine
+
+    eng = ServingEngine(SMOKE.ARCH, max_batch=4, max_len=48,
+                        fused_decode=True, device=card)
+    n_attn = SMOKE.attention_layers(eng.cfg)
+    tok, caches, _ = eng.prefill(np.zeros((4, 16), np.int32))
+    DA.LAUNCHES = 0
+    tok, caches, _ = eng.decode(tok[:, None], caches, 16)   # eager + capture
+    assert DA.LAUNCHES == n_attn
+    for i in range(2):                                      # replays
+        tok, caches, _ = eng.decode(tok[:, None], caches, 17 + i)
+    assert DA.LAUNCHES == 3 * n_attn
+    [st] = eng._dec_jit.stats()
+    assert st["captured"] and st["calls"] == 3
+    assert st["launches_per_replay"] == {"decode_attention": n_attn}
+
+
+@pytest.mark.cuda
+def test_decode_kernel_captured_at_a_large_shared_memory_shape(card):
+    res = SMOKE.check_captured_kernel(card)
+    assert res["capture_s"] > 0
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(card):
+    """A step that syncs the host cannot be captured: the call raises."""
+    from repro_torch.launch.compile import CompiledStep
+
+    step = CompiledStep(lambda x: {"y": x * float(x.sum().item())},
+                        device=card)
+    with pytest.raises(RuntimeError):
+        step(torch.ones(4, device=card))
+    assert step.keys() == []
