@@ -73,16 +73,34 @@ printing a result:
      (6 layers): equal token streams (the pipelined loop's, on the MoE,
      counted where they differ: ROADMAP C12);
   8. train: chatglm3-6b at full width, depth cut to 8 layers, through
-     ``repro_torch.launch.train.run`` with the fused AdamW kernel under the
-     step supervisor: 8 steps of 4 x 512 tokens; the kernel must launch
-     12 * 8 times, no credit may fall short, every loss must be finite;
-     then a profile of one warm step by kernel kind;
+     ``repro_torch.launch.train.build``'s compiled step (one CUDA graph
+     holding the forward, autograd's backward, the clipping, the fused
+     AdamW kernel and the credit counter) and ``train.run`` under the step
+     supervisor: 8 steps of 4 x 512 tokens; one graph captured, step 0
+     eager and every later step a replay; the kernel must launch 12 * 8
+     times, no credit may fall short, every loss must be finite; warm
+     replays queued under ``set_sync_debug_mode("error")``, then timed
+     unprofiled (host wall, queueing a replay) and the same steps under
+     ``disable_compile()`` beside them; one replay profiled by
+     kernel kind (device busy, idle share); capture seconds, the pool, peak
+     allocated and reserved; the graph dropped, memory printed before and
+     after; then at full width in f32, depth cut, compiled against
+     ``disable_compile()`` from the same weights and batches, 4 steps:
+     chatglm3-6b (2 layers) and mamba2-370m (4) bit-equal in losses, grad
+     norms and final params, qwen3-moe-30b-a3b (2) within
+     MOE_SPREAD_FACTOR times the spread of two eager runs, printed beside
+     it; a supervised 2-layer chatglm3-6b run with a NaN ``embeds`` batch
+     at step 2: rolled back into the held leaves, the ``embeds`` key
+     captured once, the final params those of the same run under
+     ``disable_compile()``; mamba2-370m (the train CLI's default arch) at
+     its full published size, 4 steps, compiled;
   9. fused vs unfused decoding, teacher-forced, at full width in f32 with
      the depth cut to 4 layers: logits within 1e-3 and greedy tokens equal
      wherever the unfused top-2 gap exceeds 1e-3;
  10. kernel vs plain optimizer: 3 training steps at full width in f32, depth
-     cut to 2 layers, from the same weights and batches: losses within 1e-5
-     relative, parameters within the tolerance stated at OPT_PARAM_TOL;
+     cut to 2 layers, from the same weights and batches, both sides through
+     ``train.build``'s compiled step: losses within 1e-5 relative,
+     parameters within the tolerance stated at OPT_PARAM_TOL;
  11. the co-design explorer and the fleet (every earlier phase's weights
      freed first, memory printed before and after): ``run_sweep`` over the
      paper's space, serially and on EXPLORER_WORKERS worker processes,
@@ -112,7 +130,10 @@ printing a result:
      fused kernel on local, slot-complete cache rows): counts, launches (28
      per decode step), credits, its decode step profiled beside phase 7's;
      the trace at 4 layers f32 through the mesh, compiled and under
-     ``disable_compile()``, token for token the plain path's; ``H100_SXM``'s predicted decode and prefill times beside the
+     ``disable_compile()``, token for token the plain path's; chatglm3-6b's
+     train step (2 layers, f32) through the mesh, compiled and under
+     ``disable_compile()``, bit-equal, its losses those of phase 8's plain
+     compiled run; ``H100_SXM``'s predicted decode and prefill times beside the
      measured ones; and the dry runs, started as CPU processes after the build
      (chatglm3-6b and qwen3-moe-235b-a22b x decode_32k on 16x16,
      qwen3-moe-235b-a22b x train_4k on 2x16x16, and phase 7's streaming
@@ -262,6 +283,19 @@ ADAMW_HPS = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
 # params x 12 B of bf16 p/g and f32 m/v would not fit in 80 GB with
 # activations; 8 layers hold 2.16 G params, ~26 GB of optimizer state).
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 512, 8
+# The compiled train step (phase 8): warm replays queued under the sync
+# debug mode, then timed unprofiled; its runs in f32 at cut depth against
+# disable_compile() (layers per arch), TRAIN_CHECK_STEPS steps each from
+# the same weights and batches; the MoE's differences may reach
+# MOE_SPREAD_FACTOR times those between two eager runs (its sums may meet
+# in another order on the card: the spread is measured in the same call);
+# a supervised run with a NaN embeds batch at ROLLBACK_NAN_AT; mamba2-370m
+# (the train CLI's default arch) at its full published size.
+TRAIN_SYNC_STEPS, TRAIN_TIMED_STEPS = 2, 4
+TRAIN_CHECKS = {ARCH: 2, SSM_ARCH: 4, MOE_ARCH: 2}
+TRAIN_CHECK_STEPS = 4
+MOE_SPREAD_FACTOR = 4.0
+ROLLBACK_NAN_AT = 2
 # Kernel vs plain optimizer over 3 steps (f32, 2 layers): a parameter may
 # differ by at most OPT_PARAM_TOL["abs"] in all but a fraction
 # OPT_PARAM_TOL["frac"] of elements, and by at most 2 * sum(lr) anywhere —
@@ -1962,20 +1996,35 @@ def _train_kind(name: str) -> str:
     return _kind(name)
 
 
+def _sync_free(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises on any stream or device sync and on any blocking copy."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def phase_train(dev) -> dict:
-    """The training path at full width: 8 supervised steps, fused AdamW."""
+    """The training path at full width: ``train.build``'s compiled step
+    (one CUDA graph, fused AdamW inside) under the supervisor for 8 steps;
+    warm replays queued with no host sync, then timed unprofiled; one
+    replay profiled; the graph dropped before the next phase."""
     import math
 
     import torch
     from torch.utils import _pytree as pytree
 
+    from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.kernels import fused_adamw as FA
     from repro_torch.launch import train
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.compile import disable_compile
 
     cfg = train_cfg(TRAIN_LAYERS)
-    step = make_train_step(cfg, opt_cfg=train_opt(TRAIN_STEPS), remat=False,
-                           fused_adamw=True)
+    _, _, step = train.build(cfg, reduced=False, opt=train_opt(TRAIN_STEPS),
+                             fused_adamw=True, device=dev)
     ckpt_dir = REPO / "results" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2001,6 +2050,14 @@ def phase_train(dev) -> dict:
     losses = out["losses"]
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"losses {losses}")
+    stats = step.stats()
+    if len(stats) != 1 or not stats[0]["captured"] \
+            or stats[0]["calls"] != TRAIN_STEPS \
+            or stats[0]["launches_per_replay"] != {"fused_adamw": n_leaves}:
+        raise AssertionError(f"compiled train step: {stats}, expected one "
+                             f"captured graph called {TRAIN_STEPS} times "
+                             f"with {n_leaves} fused AdamW launches")
+    [st] = stats
     secs = out["step_seconds"]
     warm = statistics.median(secs[1:])
     # The rate over every warm step, stalls included; the median beside it.
@@ -2014,27 +2071,374 @@ def phase_train(dev) -> dict:
            "launches": launches, "losses": losses, "step_seconds": secs,
            "step_s_median_warm": warm, "tokens_per_s": tokens_per_s,
            "tokens_per_s_at_median": TRAIN_BATCH * TRAIN_SEQ / warm,
+           "compile": st, "capture_s": st["capture_s"],
+           "pool_bytes": st["pool_bytes"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "max_memory_reserved": torch.cuda.max_memory_reserved(dev),
            "optimizer_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
            "rollback_checkpoint_bytes": ckpt_bytes, "wall_s": wall}
     log(f"[train] {ARCH} full width, depth cut to {TRAIN_LAYERS} layers "
         f"({n_params} params, {cfg.dtype}), {TRAIN_STEPS} supervised steps "
-        f"of {TRAIN_BATCH} x {TRAIN_SEQ}: fused AdamW launches {launches} == "
-        f"{n_leaves} x {TRAIN_STEPS}; no credit short, no restart")
+        f"of {TRAIN_BATCH} x {TRAIN_SEQ} through train.build's compiled "
+        f"step: one graph captured in {st['capture_s']:.3f} s, step 0 eager "
+        f"and steps 1-{TRAIN_STEPS - 1} replays; fused AdamW launches "
+        f"{launches} == {n_leaves} x {TRAIN_STEPS}; no credit short, no "
+        f"restart")
     log(f"[train] losses {[round(x, 4) for x in losses]}")
     log(f"[train] step seconds {[round(x, 4) for x in secs]} (host queueing "
         f"+ credit wait); steps 2-{TRAIN_STEPS}: {tokens_per_s:.0f} tokens/s "
         f"(all their tokens over all their seconds), median step "
-        f"{warm:.4f} s; max_memory_allocated "
-        f"{res['max_memory_allocated'] / 2**30:.2f} GiB; wall {wall:.1f} s "
-        f"(weights drawn on the card and the {ckpt_bytes / 1e9:.2f} GB "
-        f"rollback checkpoint at step 0 included)")
+        f"{warm:.4f} s; wall {wall:.1f} s (weights drawn on the card and the "
+        f"{ckpt_bytes / 1e9:.2f} GB rollback checkpoint at step 0 included)")
+    log(f"[train] {card_line()}: graph pool {gib(st['pool_bytes'])}; peak "
+        f"allocated {gib(res['max_memory_allocated'])}, reserved "
+        f"{gib(res['max_memory_reserved'])} with the graph held")
+
+    # Warm replays: queued with no host sync (the pipeline's pinned copy
+    # and the step's copy-in, replay and copy-out), then timed unprofiled.
+    params, opt_state = out["params"], out["opt_state"]
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                   seed=5), dev)
+    try:
+        next(data)
+        FA.LAUNCHES = 0
+        for _ in range(TRAIN_SYNC_STEPS):
+            params, opt_state, met = _sync_free(lambda: step(
+                params, opt_state, {"tokens": next(data)}))
+            if int(met["credits"]) != 1:
+                raise AssertionError("a warm replay's credits fell short")
+        if FA.LAUNCHES != n_leaves * TRAIN_SYNC_STEPS:
+            raise AssertionError(f"{FA.LAUNCHES} fused AdamW launches in "
+                                 f"{TRAIN_SYNC_STEPS} replays")
+        # The same steps timed replayed, then eager (disable_compile()) on
+        # the same tensors, in this call.
+        for mode in ("replay", "eager"):
+            timed = []
+            with contextlib.nullcontext() if mode == "replay" \
+                    else disable_compile():
+                for _ in range(TRAIN_TIMED_STEPS):
+                    t0 = time.perf_counter()
+                    tokens = next(data)
+                    t1 = time.perf_counter()
+                    params, opt_state, met = step(params, opt_state,
+                                                  {"tokens": tokens})
+                    t2 = time.perf_counter()
+                    int(met["credits"])
+                    timed.append((t1 - t0, t2 - t1,
+                                  time.perf_counter() - t0))
+            res[mode] = {k: statistics.median(t[i] * 1e3 for t in timed)
+                         for i, k in enumerate(("dispatch_ms", "queueing_ms",
+                                                "wall_ms"))}
+            res[mode]["steps"] = timed
+    finally:
+        data.close()
+    rp, eg = res["replay"], res["eager"]
+    log(f"[train] {TRAIN_SYNC_STEPS} warm replays queued under "
+        f"set_sync_debug_mode('error') with no sync ({n_leaves} fused AdamW "
+        f"launches each); {TRAIN_TIMED_STEPS} unprofiled: median host wall "
+        f"{rp['wall_ms']:.3f} ms per step (dispatch {rp['dispatch_ms']:.3f} + "
+        f"queueing the replay {rp['queueing_ms']:.3f} + credit wait); the "
+        f"same step under disable_compile(): {eg['wall_ms']:.3f} ms (queueing "
+        f"{eg['queueing_ms']:.3f})")
     res["profile"] = profile_train_step(dev, cfg, step, out)
     prof = res["profile"]
+    res["idle_share"] = 1.0 - prof["device_busy_ms"] / rp["wall_ms"]
+    log(f"[train] {card_line()}: replayed step: host wall {rp['wall_ms']:.3f}"
+        f" ms (unprofiled median), device busy "
+        f"{prof['device_busy_ms']:.3f} ms (profiled), idle share "
+        f"{res['idle_share']:.4f}; the eager step's host wall here "
+        f"{eg['wall_ms']:.3f} ms")
     log(f"[train] optimizer device time per step "
         f"{prof['device_ms']['fused_adamw']:.3f} ms ({prof['adamw_launches']} "
         f"fused AdamW launches) beside its bound "
         f"{res['optimizer_bound_ms']:.3f} ms ({opt_bytes} B / 3.35 TB/s)")
+    mem = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    del step, out, params, opt_state, met, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["memory_before_after_drop"] = [*mem, torch.cuda.memory_allocated(dev),
+                                       torch.cuda.memory_reserved(dev)]
+    log(f"[train] dropping the train step's graph and state: allocated "
+        f"{gib(mem[0])} -> {gib(torch.cuda.memory_allocated(dev))}, reserved "
+        f"{gib(mem[1])} -> {gib(torch.cuda.memory_reserved(dev))}")
+    return res
+
+
+def _device_batches(cfg, dev, n: int, seed: int = 1) -> list:
+    """``n`` token batches of TRAIN_BATCH x TRAIN_SEQ, on the card."""
+    import torch
+    from repro_torch.data import DataConfig, packed_batches
+    it = packed_batches(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=seed))
+    return [torch.from_numpy(next(it)).to(dev) for _ in range(n)]
+
+
+def train_steps(dev, cfg, steps: int = TRAIN_CHECK_STEPS, *,
+                compiled: bool = True, mesh=None) -> dict:
+    """``steps`` steps of ``train.build``'s step (fused AdamW) from seed-0
+    weights on seed-1 batches, compiled or under ``disable_compile()``;
+    every step after the first is queued under the sync debug mode.
+    Returns the losses, grad norms and final params (leaves), the fused
+    AdamW launches and the compiled step's stats."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.launch import train
+    from repro_torch.launch.compile import disable_compile
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+
+    _, _, step = train.build(cfg, reduced=False, opt=train_opt(TRAIN_STEPS),
+                             fused_adamw=True, device=dev, mesh=mesh)
+    params = init_params(cfg, seed=0, device=dev)
+    if mesh is not None:
+        from repro_torch.runtime.sharding import param_specs, to_shardings
+        params = to_shardings(params, param_specs(params, cfg, mesh), mesh)
+    opt_state = init_opt_state(params)
+    batches = _device_batches(cfg, dev, steps)
+    metrics = []
+    FA.LAUNCHES = 0
+    with contextlib.nullcontext() if compiled else disable_compile():
+        for i, tokens in enumerate(batches):
+            def one():
+                return step(params, opt_state, {"tokens": tokens})
+            params, opt_state, met = one() if i == 0 else _sync_free(one)
+            metrics.append(met)
+    torch.cuda.synchronize()
+
+    def scalar(x):
+        return float(x.full_tensor() if mesh is not None else x)
+
+    return {"losses": [scalar(m["loss"]) for m in metrics],
+            "grad_norms": [scalar(m["grad_norm"]) for m in metrics],
+            "params": [p.full_tensor() if mesh is not None else p
+                       for p in pytree.tree_leaves(params)],
+            "launches": FA.LAUNCHES, "stats": step.stats() if compiled else [],
+            "credits": [int(m["credits"]) for m in metrics]}
+
+
+def _check_compiled_run(tag: str, stats: list, launches: int, params,
+                        steps: int) -> None:
+    """One captured graph, called ``steps`` times, with the fused AdamW
+    kernel launched once per leaf of 128 elements or more per step."""
+    n = sum(p.ndim >= 1 and p.numel() >= 128 for p in params)
+    if len(stats) != 1 or not stats[0]["captured"] \
+            or stats[0]["calls"] != steps or launches != n * steps:
+        raise AssertionError(f"{tag}: stats {stats}, {launches} fused AdamW "
+                             f"launches (expected {n} x {steps})")
+
+
+def _run_diff(a: dict, b: dict) -> dict:
+    """Largest differences of two runs: relative in losses and grad norms,
+    absolute in the final params."""
+    def rel(x, y):
+        return max(abs(u - v) / abs(v) for u, v in zip(x, y))
+    return {"loss_rel": rel(a["losses"], b["losses"]),
+            "grad_norm_rel": rel(a["grad_norms"], b["grad_norms"]),
+            "param_abs": max(float((x - y).abs().max())
+                             for x, y in zip(a["params"], b["params"]))}
+
+
+def phase_train_compiled_vs_eager(dev) -> dict:
+    """Each arch of TRAIN_CHECKS at full width, depth cut, f32: the compiled
+    train step against ``disable_compile()`` from the same weights and
+    batches.  Dense and SSM: losses, grad norms and final params bit-equal.
+    The MoE: its differences within MOE_SPREAD_FACTOR times those between
+    two eager runs."""
+    import torch
+    from repro_torch.configs import get_config
+
+    res = {}
+    for arch, layers in TRAIN_CHECKS.items():
+        cfg = replace(get_config(arch), num_layers=layers, dtype="float32")
+        comp = train_steps(dev, cfg)
+        _check_compiled_run(f"{arch} compiled", comp["stats"],
+                            comp["launches"], comp["params"],
+                            TRAIN_CHECK_STEPS)
+        if set(comp["credits"]) != {1}:
+            raise AssertionError(f"{arch}: credits {comp['credits']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager = train_steps(dev, cfg, compiled=False)
+        out = {"layers": layers, "losses": comp["losses"],
+               "grad_norms": comp["grad_norms"],
+               "capture_s": comp["stats"][0]["capture_s"],
+               "pool_bytes": comp["stats"][0]["pool_bytes"],
+               "launches": comp["launches"], "eager_launches":
+               eager["launches"]}
+        if arch == MOE_ARCH:
+            eager2 = train_steps(dev, cfg, compiled=False)
+            spread = _run_diff(eager2, eager)
+            del eager2
+            diff = _run_diff(comp, eager)
+            out.update(spread=spread, diff=diff)
+            bad = [k for k in diff if diff[k] > MOE_SPREAD_FACTOR * spread[k]]
+            if bad:
+                raise AssertionError(f"{arch}: compiled vs eager {diff} "
+                                     f"beyond {MOE_SPREAD_FACTOR} x the "
+                                     f"eager-vs-eager spread {spread}")
+            log(f"[train-check] {arch} {layers} layers f32, "
+                f"{TRAIN_CHECK_STEPS} steps: compiled vs eager {diff}; "
+                f"eager vs eager {spread} (limit {MOE_SPREAD_FACTOR} x)")
+        else:
+            equal = comp["losses"] == eager["losses"] and \
+                comp["grad_norms"] == eager["grad_norms"] and \
+                all(torch.equal(a, b) for a, b in zip(comp["params"],
+                                                       eager["params"]))
+            if not equal or comp["launches"] != eager["launches"]:
+                raise AssertionError(f"{arch}: compiled {comp['losses']} / "
+                                     f"{comp['grad_norms']} vs eager "
+                                     f"{eager['losses']} / "
+                                     f"{eager['grad_norms']}; differences "
+                                     f"{_run_diff(comp, eager)}")
+            log(f"[train-check] {arch} {layers} layers f32, "
+                f"{TRAIN_CHECK_STEPS} steps: compiled and disable_compile() "
+                f"losses, grad norms and final params bit-equal; losses "
+                f"{[round(x, 5) for x in comp['losses']]}")
+        log(f"[train-check] {arch}: capture {out['capture_s']:.3f} s, pool "
+            f"{gib(out['pool_bytes'])}, fused AdamW launches "
+            f"{comp['launches']} compiled, {eager['launches']} eager")
+        res[arch] = out
+        del comp, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_train_rollback(dev) -> dict:
+    """A supervised run of ``train.build``'s step (chatglm3-6b at full
+    width, 2 layers, f32) with a NaN ``embeds`` batch at ROLLBACK_NAN_AT:
+    compiled, the rollback restores into the held leaves, the ``embeds``
+    key is captured once and the ``tokens`` graph replays after it; the
+    final params equal the same run's under ``disable_compile()``."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.launch.compile import disable_compile
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime.fault import StepSupervisor, SupervisorConfig
+
+    cfg = train_cfg(2, "float32")
+    steps = TRAIN_CHECK_STEPS
+    # Steps before the fault, the NaN batch, then every step again from
+    # the rollback point (the checkpoint at step 0).
+    toks = _device_batches(cfg, dev, ROLLBACK_NAN_AT + 1 + steps, seed=3)
+    runs = {}
+    for compiled in (True, False):
+        _, _, step = train.build(cfg, reduced=False,
+                                 opt=train_opt(TRAIN_STEPS), fused_adamw=True,
+                                 device=dev)
+        params = init_params(cfg, seed=0, device=dev)
+        state = (params, init_opt_state(params))
+        drawn = pytree.tree_leaves(state)
+
+        def batches():
+            for i, t in enumerate(toks):
+                if i == ROLLBACK_NAN_AT:
+                    yield {"embeds": torch.full(
+                        (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), float("nan"),
+                        device=dev), "labels": t}
+                else:
+                    yield {"tokens": t}
+
+        def step_fn(state, batch):
+            p, o, metrics = step(*state, batch)
+            return (p, o), metrics
+
+        ckpt_dir = REPO / "results" / f"rollback_ckpt_{int(compiled)}"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        sup = StepSupervisor(step_fn, CheckpointManager(ckpt_dir, keep=1),
+                             SupervisorConfig(ckpt_every=100),
+                             credit_threshold=1)
+        with contextlib.nullcontext() if compiled else disable_compile():
+            state, rep = sup.run(state, batches(), steps)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        leaves = pytree.tree_leaves(state)
+        held = all(a is b for a, b in zip(leaves, drawn))
+        mode = "compiled" if compiled else "eager"
+        if rep.restarts != 1 or rep.faults[0]["step"] != ROLLBACK_NAN_AT \
+                or rep.steps_done != ROLLBACK_NAN_AT + steps or not held:
+            raise AssertionError(f"rollback ({mode}): restarts "
+                                 f"{rep.restarts}, faults {rep.faults}, "
+                                 f"{rep.steps_done} steps, held leaves "
+                                 f"kept: {held}")
+        stats = step.stats() if compiled else []
+        # tokens (one leaf): every good step; embeds + labels: once.
+        by_key = sorted((len(st["key"]), st["calls"], st["captured"])
+                        for st in stats)
+        if compiled and by_key != [(1, ROLLBACK_NAN_AT + steps, True),
+                                   (2, 1, True)]:
+            raise AssertionError(f"rollback: compiled keys {stats}")
+        runs[compiled] = (leaves, rep.steps_done, stats)
+        del step, state, params
+    (lc, n, stats), (le, _, _) = runs[True], runs[False]
+    if not all(torch.equal(a, b) for a, b in zip(lc, le)):
+        raise AssertionError("rollback: compiled and disable_compile() final "
+                             "params differ")
+    res = {"steps_done": n, "nan_at": ROLLBACK_NAN_AT,
+           "graphs": [{k: st[k] for k in ("key", "calls", "capture_s")}
+                      for st in stats]}
+    log(f"[train-rollback] chatglm3-6b 2 layers f32: NaN embeds batch at "
+        f"step {ROLLBACK_NAN_AT} caught by the credit counter, rolled back "
+        f"into the held leaves; tokens graph {stats[0]['calls']} calls, "
+        f"embeds graph captured once; final params equal "
+        f"disable_compile()'s")
+    return res
+
+
+def phase_train_ssm(dev) -> dict:
+    """mamba2-370m, the train CLI's default arch, at its full published
+    size through ``train.build`` and ``train.run``, compiled."""
+    import math
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.launch import train
+
+    steps = TRAIN_CHECK_STEPS
+    cfg, _, step = train.build(SSM_ARCH, reduced=False,
+                               opt=train_opt(TRAIN_STEPS), fused_adamw=True,
+                               device=dev)
+    if cfg != get_config(SSM_ARCH):
+        raise AssertionError(f"{SSM_ARCH}: build changed the config")
+    ckpt_dir = REPO / "results" / "ssm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    FA.LAUNCHES = 0
+    out = train.run(cfg, step, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    ckpt_dir=ckpt_dir, ckpt_every=steps + 1, log_every=1,
+                    device=dev)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    leaves = pytree.tree_leaves(out["params"])
+    stats = step.stats()
+    _check_compiled_run(SSM_ARCH, stats, FA.LAUNCHES, leaves, steps)
+    if out["faults"] or not all(map(math.isfinite, out["losses"])):
+        raise AssertionError(f"{SSM_ARCH}: faults {out['faults']}, losses "
+                             f"{out['losses']}")
+    [st] = stats
+    res = {"arch": SSM_ARCH, "layers": cfg.num_layers,
+           "params": sum(p.numel() for p in leaves), "dtype": cfg.dtype,
+           "losses": out["losses"], "step_seconds": out["step_seconds"],
+           "launches": FA.LAUNCHES, "capture_s": st["capture_s"],
+           "pool_bytes": st["pool_bytes"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    log(f"[train-ssm] {SSM_ARCH} full size ({cfg.num_layers} layers, "
+        f"{res['params']} params, {cfg.dtype}), {steps} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} compiled: losses "
+        f"{[round(x, 4) for x in out['losses']]}, step seconds "
+        f"{[round(x, 4) for x in out['step_seconds']]}; capture "
+        f"{st['capture_s']:.3f} s, pool {gib(st['pool_bytes'])}, fused AdamW "
+        f"launches {FA.LAUNCHES}")
+    del step, out, leaves
     return res
 
 
@@ -2094,27 +2498,28 @@ def profile_train_step(dev, cfg, step, out) -> dict:
 def phase_optimizer_paths(dev) -> dict:
     """Kernel vs plain optimizer: 3 steps from the same weights and batches
     (f32, full width, 2 layers)."""
-    import torch
     from torch.utils import _pytree as pytree
 
     from repro_torch.launch import train
-    from repro_torch.launch.steps import make_train_step
 
     steps = 3
     cfg = train_cfg(2, "float32")
     opt = train_opt(TRAIN_STEPS)
     runs = {}
     for fused in (True, False):
-        step = make_train_step(cfg, opt_cfg=opt, remat=False,
-                               fused_adamw=fused)
+        _, _, step = train.build(cfg, reduced=False, opt=opt,
+                                 fused_adamw=fused, device=dev)
         ckpt_dir = REPO / "results" / f"opt_ckpt_{int(fused)}"
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         out = train.run(cfg, step, steps=steps, batch=TRAIN_BATCH,
                         seq=TRAIN_SEQ, ckpt_dir=ckpt_dir,
                         ckpt_every=steps + 1, log_every=1, device=dev)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        [st] = step.stats()
+        if not st["captured"] or st["calls"] != steps:
+            raise AssertionError(f"optimizer paths: compiled step {st}")
         runs[fused] = (out["losses"], pytree.tree_leaves(out["params"]))
-        del out
+        del out, step
     (lk, pk), (lp, pp) = runs[True], runs[False]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     if rel > 1e-5:
@@ -2136,7 +2541,8 @@ def phase_optimizer_paths(dev) -> dict:
            "losses_kernel": lk, "losses_plain": lp, "loss_max_rel": rel,
            "param_max_abs_diff": worst, "param_beyond_abs_tol": n_over,
            "param_elements": n_all, "param_limit_2_sum_lr": 2 * lr_sum}
-    log(f"[optimizer] kernel vs plain, f32, 2 layers, {steps} steps: losses "
+    log(f"[optimizer] kernel vs plain, f32, 2 layers, {steps} steps, both "
+        f"through train.build's compiled step (one graph each): losses "
         f"max rel diff {rel:.3e} <= 1e-5; params max|diff| {worst:.3e} "
         f"(<= 2 sum(lr) = {2 * lr_sum:.3e}); {n_over} of {n_all} beyond "
         f"{OPT_PARAM_TOL['abs']}")
@@ -2370,6 +2776,39 @@ def _token_streams(dev, params, cfg, mesh=None, compiled=True) -> dict:
             if r.state is RequestState.DONE}
 
 
+def check_mesh_train(dev, mesh, train_checks) -> dict:
+    """chatglm3-6b's train step at full width, 2 layers, f32, through
+    ``mesh`` (DTensor params, moments and batch): compiled and under
+    ``disable_compile()``, bit-equal to each other, and losses equal to
+    the plain path's compiled run of phase 8."""
+    import torch
+
+    cfg = train_cfg(2, "float32")
+    comp = train_steps(dev, cfg, mesh=mesh)
+    _check_compiled_run("mesh train", comp["stats"], comp["launches"],
+                        comp["params"], TRAIN_CHECK_STEPS)
+    eager = train_steps(dev, cfg, compiled=False, mesh=mesh)
+    plain = train_checks[ARCH]["losses"]
+    same = comp["losses"] == eager["losses"] and \
+        comp["grad_norms"] == eager["grad_norms"] and \
+        all(torch.equal(a, b) for a, b in zip(comp["params"],
+                                               eager["params"]))
+    if not same or comp["losses"] != plain or set(comp["credits"]) != {1}:
+        raise AssertionError(f"mesh train: compiled {comp['losses']}, "
+                             f"disable_compile() {eager['losses']}, plain "
+                             f"{plain}; credits {comp['credits']}; compiled "
+                             f"vs eager {_run_diff(comp, eager)}")
+    st = comp["stats"][0]
+    log(f"[mesh] {card_line()}: chatglm3-6b train step, 2 layers f32, "
+        f"through the 1x1 mesh: compiled (one graph, captured in "
+        f"{st['capture_s']:.3f} s, {comp['launches']} fused AdamW launches) "
+        f"and disable_compile() bit-equal; losses equal the plain path's "
+        f"{[round(x, 5) for x in plain]}")
+    return {"losses": comp["losses"], "grad_norms": comp["grad_norms"],
+            "capture_s": st["capture_s"], "pool_bytes": st["pool_bytes"],
+            "launches": comp["launches"]}
+
+
 def phase_mesh(dev, results) -> dict:
     """chatglm3-6b served through a ``DeviceMesh``: an NCCL group of one
     rank, ``serve_workload(mesh=make_host_mesh(1, 1))`` on the stream
@@ -2418,6 +2857,7 @@ def phase_mesh(dev, results) -> dict:
         meshed = _token_streams(dev, params4, cfg4, mesh=mesh)
         meshed_eager = _token_streams(dev, params4, cfg4, mesh=mesh,
                                       compiled=False)
+        res["train"] = check_mesh_train(dev, mesh, results["train_checks"])
     finally:
         layers._on_batch_shards = inner
         dist.destroy_process_group()
@@ -2620,8 +3060,16 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
         for arch, layers in FAMILY_CHECK_LAYERS.items()]
     free()
 
-    # 8. Training at full width, depth cut: its main path, launches from 0.
+    # 8. Training at full width, depth cut: its main path (compiled),
+    # launches from 0; compiled against disable_compile() at cut depth in
+    # f32; a rollback into the held leaves; mamba2-370m at full size.
     results["train"] = phase_train(dev)
+    free()
+    results["train_checks"] = phase_train_compiled_vs_eager(dev)
+    free()
+    results["train_rollback"] = check_train_rollback(dev)
+    free()
+    results["train_ssm"] = phase_train_ssm(dev)
     free()
 
     # 9. Fused vs unfused decoding, teacher-forced.

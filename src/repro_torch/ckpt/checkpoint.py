@@ -22,6 +22,10 @@ same checkpoint.  Restoring with ``mesh=`` places each leaf by a spec
 tree on that mesh, whatever mesh the tree was saved from (the reference's
 elastic restore).
 
+A restore copies into the tensors of the tree it is given, where the
+reference builds new arrays: the supervisor's rollback then leaves the
+parameters and moments at the addresses a compiled train step holds.
+
 bf16 leaves are written as the reference writes them: numpy has no
 bfloat16, so the file holds the raw 2-byte values with the ``'<V2'`` descr
 and the manifest says ``"bfloat16"``.  On restore the manifest's dtype
@@ -195,6 +199,16 @@ def _agreed_step(directory: Path, step: int | None) -> int:
     return step
 
 
+def _in_place(ref: Any, mesh) -> bool:
+    """Whether the restore copies into ``ref`` itself: a tensor that holds
+    data (not on the meta device), a DTensor when restoring onto a mesh
+    and a plain tensor otherwise."""
+    if not isinstance(ref, torch.Tensor) or ref.device.type == "meta":
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(ref, DTensor) == (mesh is not None)
+
+
 def restore_checkpoint(directory: str | Path, tree_like: Any,
                        step: int | None = None, *,
                        shardings: Any = None,
@@ -202,33 +216,35 @@ def restore_checkpoint(directory: str | Path, tree_like: Any,
     """Restore into the structure of ``tree_like``; returns (tree, step,
     extra).
 
-    Leaves in ``tree_like`` are shape *references*: a tensor or array leaf
-    is checked against the manifest, while a shapeless placeholder leaf
-    (e.g. ``0``) matches by name only.  ``shardings`` — the port's
-    counterpart of the reference's placement argument — is a
-    ``torch.device`` for every leaf; when it is None, each leaf goes to the
-    device of the ``tree_like`` tensor it replaces, or stays on the CPU.
+    A tensor leaf of ``tree_like`` that holds data is restored in place:
+    the saved values are copied into it and the returned tree holds that
+    very tensor, so whatever holds the leaf at its address (a compiled
+    train step) goes on with the restored values.  Its shape and dtype
+    must be the saved ones; every leaf is read and checked before any is
+    written.  Any other leaf is a shape reference and comes back as a new
+    tensor: a meta tensor or an array is checked against the manifest, a
+    shapeless placeholder (e.g. ``0``) matches by name only.
+    ``shardings`` — the port's counterpart of the reference's placement
+    argument — is the ``torch.device`` of the new leaves (None: the CPU).
     With a ``DeviceMesh`` as ``mesh``, ``shardings`` is a spec tree (of
-    ``runtime.sharding.PartitionSpec``) with ``tree_like``'s structure, and
-    every leaf comes back a DTensor placed by its spec on ``mesh``.
+    ``runtime.sharding.PartitionSpec``) with ``tree_like``'s structure:
+    every leaf is placed by its spec on ``mesh``, a DTensor leaf of
+    ``tree_like`` (which must have those placements) is restored in place,
+    and any other comes back a new DTensor — a restore onto another mesh
+    (the reference's elastic restore).
 
     In a process group every rank calls it, after its own writes ended
     (``CheckpointManager.restore_latest`` waits for them), and every rank
     restores the step rank 0 chooses.
     """
-    if mesh is not None:
-        from repro_torch.runtime.sharding import to_shardings
-        tree, step, extra = restore_checkpoint(
-            directory, tree_like, step,
-            shardings=torch.device(mesh.device_type))
-        return to_shardings(tree, shardings, mesh), step, extra
     directory = Path(directory)
     step = _agreed_step(directory, step)
     d = directory / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {m["name"]: m for m in manifest["leaves"]}
+    refs = _flatten(tree_like)
     leaves = {}
-    for name, ref in _flatten(tree_like):
+    for name, ref in refs:
         m = by_name.get(name)
         if m is None:
             raise KeyError(f"checkpoint missing leaf {name!r}")
@@ -237,11 +253,23 @@ def restore_checkpoint(directory: str | Path, tree_like: Any,
         if tuple(t.shape) != want_shape:
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
                              f"expected {want_shape}")
-        device = shardings
-        if device is None and isinstance(ref, torch.Tensor) \
-                and ref.device.type != "meta":
-            device = ref.device
-        leaves[name] = t if device is None else t.to(device)
+        if _in_place(ref, mesh) and ref.dtype != t.dtype:
+            raise ValueError(f"{name}: checkpoint dtype {t.dtype} != the "
+                             f"leaf's {ref.dtype}")
+        leaves[name] = t
+    if mesh is not None:
+        from repro_torch.runtime.sharding import to_shardings
+        dev = torch.device(mesh.device_type)
+        placed = to_shardings(_unflatten(tree_like, {
+            n: t.to(dev) for n, t in leaves.items()}), shardings, mesh)
+        leaves = dict(_flatten(placed))
+    elif shardings is not None:
+        leaves = {n: t.to(shardings) for n, t in leaves.items()}
+    for name, ref in refs:
+        if _in_place(ref, mesh):
+            with torch.no_grad():
+                ref.copy_(leaves[name])
+            leaves[name] = ref
     return _unflatten(tree_like, leaves), step, manifest["extra"]
 
 
@@ -284,6 +312,8 @@ class CheckpointManager:
 
     def restore_latest(self, tree_like: Any, *, shardings: Any = None,
                        mesh=None):
+        """``restore_checkpoint`` of the latest step, into ``tree_like``'s
+        tensors, once this manager's writes have ended."""
         self.wait()
         return restore_checkpoint(self.directory, tree_like,
                                   shardings=shardings, mesh=mesh)

@@ -1,9 +1,11 @@
 """Compiled steps: the port's counterpart of the reference's ``jax.jit``.
 
-The reference's serving engine runs each step as one compiled executable,
-kept per input shape (``jax.jit`` of the decode step, one per prompt
-length of the prefills), dispatched by one host call and updating its
-donated caches.  A ``CompiledStep`` does the same with CUDA graphs:
+The reference runs each step as one compiled executable, kept per input
+shape, dispatched by one host call and updating its donated buffers: the
+serving engine's decode step and its prefills (one per prompt length), and
+the training loop's train step (``launch/train.py``: params and optimizer
+state donated, forward, backward, clipping and AdamW in one executable).  A
+``CompiledStep`` does the same with CUDA graphs:
 
   * it keeps one entry per *key*, the shapes and dtypes of the inputs that
     are not static (``static_argnums`` names the static ones, e.g. the

@@ -5,7 +5,9 @@ The port of ``repro/launch/steps.py``.  Each factory returns a plain
 function that runs eagerly.  Compiling is the caller's: the serving engine
 wraps each step in a ``launch.compile.CompiledStep`` (one CUDA graph per
 input shape, as the reference's ``jax.jit`` keeps one executable), with
-the parameters and its own caches as the static arguments.  Given a
+the parameters and its own caches as the static arguments, and
+``launch.train.build`` wraps the train step with the parameters and the
+optimizer state static.  Given a
 ``DeviceMesh`` (``mesh=``), a step runs the same model code on DTensors:
 its inputs are placed by ``runtime.sharding``'s specs (a leaf that is
 already a DTensor is taken as it is), the model applies the reference's
@@ -16,9 +18,12 @@ the dry run.
 
 ``make_train_step`` returns ``fn(params, opt_state, batch) -> (params,
 opt_state, metrics)``: autograd of the mean next-token loss, global-norm
-clipping, and one AdamW step that updates params and moments in place (the
-reference's ``donate_argnums=(0, 1)``), with ``metrics = {"loss",
-"grad_norm", "credits"}``.
+clipping, and one AdamW step that updates params, moments and the step
+count in place (the reference's ``donate_argnums=(0, 1)``) and returns
+them, with ``metrics = {"loss", "grad_norm", "credits"}``.  Everything in
+it stays on the device and nothing reads a value back to the host, so the
+whole step (autograd's backward included) can be captured into one CUDA
+graph.
 
 The serving steps return ``{"next_token", "caches", "credits"}``:
 
@@ -126,9 +131,11 @@ def make_train_step(cfg: ModelConfig, *, opt_cfg: AdamWConfig | None = None,
 
     With a ``mesh``, params and moments must already be DTensors placed by
     ``param_specs``/``opt_specs`` (they are updated in place); the batch is
-    placed by ``batch_specs``, and the gradients are redistributed to the
-    params' placements before the update (a reduce-scatter over the data
-    axes, the reference's ``with_sharding_constraint`` on the grads).
+    placed by ``batch_specs`` (inside the step, so a compiled step places
+    the batch buffer it copied in; a DTensor leaf is taken as it is), and
+    the gradients are redistributed to the params' placements before the
+    update (a reduce-scatter over the data axes, the reference's
+    ``with_sharding_constraint`` on the grads).
     """
     opt_cfg = opt_cfg or AdamWConfig()
     ctx = _ctx(mesh)

@@ -1,8 +1,13 @@
 """End-to-end training on one card.
 
-The port of ``repro/launch/train.py``: config -> train step (with credit
-counter) -> multicast data pipeline -> AdamW -> checkpoint manager ->
-fault-tolerant supervisor loop.
+The port of ``repro/launch/train.py``: config -> compiled train step
+(with credit counter) -> multicast data pipeline -> AdamW -> checkpoint
+manager -> fault-tolerant supervisor loop.  ``build`` compiles the step as
+the reference's ``jax.jit`` does: a ``launch.compile.CompiledStep`` with the
+parameters and optimizer state static, one CUDA graph per batch key on the
+card (forward, backward, clipping, AdamW and the credit counter inside),
+replayed at every step after the key's first; ``disable_compile()`` runs
+the same path eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
       --reduced --device cpu --fused-adamw --steps 20 --batch 4 --seq 32
@@ -17,8 +22,8 @@ by ``runtime.sharding``, and a step's credits count every device.
 kernel (CUDA on the card, its plain version on the CPU): the counterpart
 of the reference optimizer's ``use_pallas=True``, which the reference CLI
 has no switch for.  ``--device`` defaults to ``cuda`` and raises without a
-card.  ``run`` takes a ``ModelConfig``, so a caller can train a config cut
-to any depth.
+card.  ``build`` and ``run`` take a ``ModelConfig``, so a caller can train a
+config cut to any depth.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.sync import credit_threshold
 from repro_torch.data import DataConfig, DataPipeline
+from repro_torch.launch.compile import CompiledStep
 from repro_torch.launch.device import resolve_device
 from repro_torch.launch.mesh import check_mesh_device, host_mesh
 from repro_torch.launch.steps import make_train_step
@@ -49,11 +55,23 @@ def _scalar(x) -> float:
     return float(x.full_tensor() if isinstance(x, DTensor) else x)
 
 
-def build(arch: str, *, reduced: bool, opt: AdamWConfig | None = None,
-          vocab: int | None = None, fused_adamw: bool = False,
-          device: str | torch.device = "cuda", mesh=None):
-    """Config, device and train step for ``arch``: (cfg, device, step)."""
-    cfg = get_config(arch)
+def build(arch: str | ModelConfig, *, reduced: bool,
+          opt: AdamWConfig | None = None, vocab: int | None = None,
+          fused_adamw: bool = False, device: str | torch.device = "cuda",
+          mesh=None):
+    """Config, device and compiled train step for ``arch``: (cfg, device,
+    step).
+
+    ``step(params, opt_state, batch)`` is a ``CompiledStep`` of
+    ``make_train_step``'s function, the counterpart of the reference's
+    ``jax.jit(bundle.fn, ..., donate_argnums=(0, 1))``: the params and the
+    optimizer state are its static arguments (updated in place; every call
+    must pass the same tensors), the batch is copied into a buffer kept per
+    batch key (``{"tokens"}`` and ``{"embeds", "labels"}`` are two keys).
+    On the card each key's first call runs eagerly and captures a CUDA
+    graph in the step's own memory pool; every later call replays it.
+    """
+    cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
     if reduced:
         cfg = scaled_down(cfg)
         if vocab:
@@ -63,8 +81,11 @@ def build(arch: str, *, reduced: bool, opt: AdamWConfig | None = None,
         # training run we train over token ids instead (text mode).
         cfg = dataclasses.replace(cfg, frontend="")
     dev = resolve_device(device)
-    step = make_train_step(cfg, opt_cfg=opt, remat=False,
-                           fused_adamw=fused_adamw, mesh=mesh)
+    fn = make_train_step(cfg, opt_cfg=opt, remat=False,
+                         fused_adamw=fused_adamw, mesh=mesh)
+    pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+    step = CompiledStep(fn, device=dev, static_argnums=(0, 1), pool=pool,
+                        name="train_step")
     return cfg, dev, step
 
 
@@ -110,9 +131,12 @@ def run(cfg: ModelConfig, train_step, *, steps: int, batch: int, seq: int,
     data pipeline with seed 1.  With a ``mesh`` (the train step must be
     built over the same one), params and moments are placed by
     ``param_specs``/``opt_specs`` and batches over the data axes.  Returns
-    the losses read at each logging point, the steps done, and the
+    the losses read at each logging point, the steps done, the
     supervisor's per-step seconds (host queueing + credit wait), faults
-    and restarts.
+    and restarts, and the final ``params`` and ``opt_state``: the tensors
+    drawn here, updated in place by every step and restored into by a
+    resume or a rollback, so a compiled ``train_step`` holds them
+    throughout.
     """
     dev = resolve_device(device)
     if mesh is not None:

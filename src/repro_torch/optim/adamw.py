@@ -12,7 +12,10 @@ parameter update:
 
 Moments are stored in f32 regardless of param dtype; update math is f32.
 The step count, the learning rate and the bias corrections stay on the
-device, so a step never waits for the host.
+device, so a step never waits for the host.  The step count is advanced
+in place, as the moments are updated: a train step captured into a CUDA
+graph then reads the new count at every replay (a new tensor would leave
+the replay reading the count it was captured with).
 """
 
 from __future__ import annotations
@@ -107,11 +110,11 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
                  *, use_kernel: bool = False) -> tuple[Any, dict]:
     """One AdamW step (grads assumed already clipped/averaged).
 
-    Updates the leaves of ``params`` and of ``state["m"]``/``state["v"]``
-    in place — the counterpart of the reference's ``donate_argnums=(0, 1)``
-    — and returns them with the new step count.
+    Updates the leaves of ``params``, of ``state["m"]``/``state["v"]``
+    and the step count ``state["step"]`` in place — the counterpart of the
+    reference's ``donate_argnums=(0, 1)`` — and returns them.
     """
-    step = state["step"] + 1
+    step = state["step"].add_(1)
     lr = cosine_schedule(cfg, step)
     stepf = step.float()
     c1 = 1.0 / (1.0 - cfg.b1 ** stepf)

@@ -38,7 +38,9 @@ needs a checkpoint.  A supervisor therefore saves one at ``start_step``,
 blocking, before its first step, so that a poisoned step always has a state
 to roll back to.  Where the reference carries on from the state before the
 poisoned step, the port carries on from the last checkpoint; both skip the
-batch.
+batch.  The rollback restores into the state's own tensors, so a compiled
+train step (``launch.compile.CompiledStep``), which holds the parameters
+and moments at their addresses, goes on replaying its graph on them.
 
 The supervisor's checkpoint import is lazy so the injector stays
 importable on its own.
@@ -292,10 +294,11 @@ class StepSupervisor:
             mesh=None) -> tuple[Any, SupervisorReport]:
         """Run steps ``start_step .. num_steps - 1``; returns (state, report).
 
-        ``shardings`` is passed to the checkpoint restore of a rollback: a
-        ``torch.device`` for every restored leaf, or None to restore each
-        leaf onto the device of the state leaf it replaces; with a
-        ``DeviceMesh`` as ``mesh``, the state's spec tree.
+        A rollback restores the last checkpoint into the tensors of the
+        state the poisoned step was given (``restore_checkpoint``), so the
+        returned state holds the same tensors.  ``shardings`` is passed to
+        that restore: the device of any leaf that is not a tensor, or with
+        a ``DeviceMesh`` as ``mesh``, the state's spec tree.
         """
         from repro_torch.core.sync import FaultDetected
         rep = SupervisorReport()
@@ -323,7 +326,8 @@ class StepSupervisor:
                 rep.restarts = restarts
                 if restarts > self.cfg.max_restarts:
                     raise
-                # Roll back to the last good checkpoint; skip this batch.
+                # Roll back to the last good checkpoint, into the state's
+                # own tensors; skip this batch.
                 state, step, _ = self.ckpt.restore_latest(
                     state, shardings=shardings, mesh=mesh)
                 continue

@@ -17,7 +17,13 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
   * the engine's compiled steps (CUDA graphs) give the token streams of the
     same calls under ``disable_compile()`` (chatglm3-6b fused and unfused,
     qwen3-moe-30b-a3b, mamba2-370m, 2 layers at full width, f32), count
-    the decode kernel per replay, and a capture that fails raises.
+    the decode kernel per replay, and a capture that fails raises;
+  * the compiled train step (``launch.train.build``, chatglm3-6b at full
+    width, 2 layers, f32): its replays, queued under
+    ``set_sync_debug_mode("error")``, give the losses, grad norms and
+    params of ``disable_compile()`` bit for bit, with the fused AdamW
+    launches re-added per replay; a supervised run with a NaN batch rolls
+    back into the leaves the graph holds.
 
 This file imports neither jax nor the reference package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -184,3 +190,29 @@ def test_a_capture_that_fails_raises(card):
     with pytest.raises(RuntimeError):
         step(torch.ones(4, device=card))
     assert step.keys() == []
+
+
+# --------------------------------------------------------------------------- #
+# The compiled train step
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_compiled_train_step_equals_eager(card):
+    cfg = SMOKE.train_cfg(2, "float32")
+    comp = SMOKE.train_steps(card, cfg)        # steps 1.. under "error"
+    [st] = comp["stats"]
+    n = sum(p.ndim >= 1 and p.numel() >= 128 for p in comp["params"])
+    assert st["captured"] and st["calls"] == SMOKE.TRAIN_CHECK_STEPS
+    assert st["launches_per_replay"] == {"fused_adamw": n}
+    assert comp["launches"] == n * SMOKE.TRAIN_CHECK_STEPS
+    eager = SMOKE.train_steps(card, cfg, compiled=False)
+    assert comp["losses"] == eager["losses"]
+    assert comp["grad_norms"] == eager["grad_norms"]
+    assert all(torch.equal(a, b) for a, b in zip(comp["params"],
+                                                   eager["params"]))
+
+
+@pytest.mark.cuda
+def test_train_rollback_restores_into_the_captured_leaves(card):
+    res = SMOKE.check_train_rollback(card)
+    assert res["steps_done"] == SMOKE.ROLLBACK_NAN_AT + SMOKE.TRAIN_CHECK_STEPS
+    assert [g["calls"] for g in res["graphs"]] == [res["steps_done"], 1]

@@ -12,9 +12,10 @@ credits.
     chatglm3-6b reduced (f32) prefills, decodes (fused and unfused) and
     takes a train step, qwen3-moe-30b-a3b and mamba2-370m reduced prefill
     and decode (mamba2 trains too: its SSD runs on each device's heads),
-    and each result is held against the same call on one
-    device: tokens equal, logits, caches, loss, grad norm, params and the
-    first moment (the gradients: m = 0.1 g after one step) within the
+    chatglm3-6b and mamba2-370m take two steps of ``launch.train.build``'s
+    compiled train step, and each result is held against the same call on
+    one device: tokens equal, logits, caches, loss, grad norm, params and
+    the first moment (the gradients: m = 0.1 g after one step) within the
     tolerances below; credits equal the mesh's 4 devices.  A checkpoint
     saved from the 2x2 mesh restores onto a 4x1 mesh bit for bit, and a
     spec over ``("pod", "data")`` puts block ``2 p + d`` on device (p, d),
@@ -241,7 +242,25 @@ def _run(arch, mesh):
         out.update(loss=metrics["loss"], grad_norm=metrics["grad_norm"],
                    params=params, m=opt["m"],
                    train_credits=metrics["credits"])
+        out.update(_compiled_train(cfg, mesh))
     return _whole(out)
+
+
+def _compiled_train(cfg, mesh) -> dict:
+    """Two steps of ``train.build``'s compiled step from fresh weights (on
+    the CPU it runs eagerly on its static buffers, DTensors on a mesh)."""
+    from repro_torch.launch import train
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime.sharding import param_specs, to_shardings
+    _, _, step = train.build(cfg, reduced=False, device="cpu", mesh=mesh)
+    params = init_params(cfg, seed=0, device="cpu")
+    if mesh is not None:
+        params = to_shardings(params, param_specs(params, cfg, mesh), mesh)
+    opt = init_opt_state(params)
+    metrics = [step(params, opt, {"tokens": _tokens(cfg, (4, 16), 6 + i)})[2]
+               for i in range(2)]
+    return {f"compiled_{k}": torch.stack([_whole(m[k]) for m in metrics])
+            for k in ("loss", "grad_norm", "credits")}
 
 
 def _save(tree, path):
@@ -376,6 +395,16 @@ def test_mesh_train_step_matches_one_device(arch, gloo_run, plain):
             key[2:-2]].numpy(), rtol=RTOL)
     assert any(k.startswith("['m']") for k in got.files)
     assert int(got["['train_credits']"]) == 4
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_mesh_compiled_train_step_matches_one_device(arch, gloo_run, plain):
+    got = np.load(gloo_run / f"{arch}.npz")
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got[f"['compiled_{key}']"],
+                                   plain[arch][f"compiled_{key}"].numpy(),
+                                   rtol=RTOL)
+    np.testing.assert_array_equal(got["['compiled_credits']"], [4, 4])
 
 
 def test_elastic_restore_and_axis_order(gloo_run):

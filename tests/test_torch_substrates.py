@@ -298,10 +298,21 @@ def test_supervisor_preemption_checkpoints_and_exits(tmp_path):
     assert int(got) == int(state) and extra == {"preempted": True}
 
 
-def _train_with_a_nan_batch(tmp_path, *, nan_at, ckpt_every, steps):
+def _train_with_a_nan_batch(tmp_path, *, nan_at, ckpt_every, steps,
+                            compiled=False):
+    """A supervised run with a NaN batch at ``nan_at``: through the eager
+    train step, or with ``compiled`` through ``launch.train.build``'s
+    compiled step.  Returns the report, the final state and the state's
+    leaves as drawn."""
     cfg = scaled_down(get_config("chatglm3-6b"))
-    step_fn = make_train_step(cfg, opt_cfg=AdamWConfig(lr=1e-3), remat=False,
-                              fused_adamw=True)
+    if compiled:
+        from repro_torch.launch import train
+        _, _, step_fn = train.build(cfg, reduced=False,
+                                    opt=AdamWConfig(lr=1e-3),
+                                    fused_adamw=True, device="cpu")
+    else:
+        step_fn = make_train_step(cfg, opt_cfg=AdamWConfig(lr=1e-3),
+                                  remat=False, fused_adamw=True)
     tokens = packed_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                        global_batch=2, seed=1))
 
@@ -318,31 +329,34 @@ def _train_with_a_nan_batch(tmp_path, *, nan_at, ckpt_every, steps):
         return (p, o), metrics
 
     params = init_params(cfg, seed=0, device="cpu")
+    state = (params, init_opt_state(params))
+    drawn = jax.tree.leaves(state, is_leaf=torch.is_tensor)
     ckpt = CheckpointManager(tmp_path, keep=2)
     sup = StepSupervisor(step, ckpt, SupervisorConfig(ckpt_every=ckpt_every),
                          credit_threshold=credit_threshold())
-    (p, o), rep = sup.run((params, init_opt_state(params)), batches(), steps)
+    (p, o), rep = sup.run(state, batches(), steps)
     assert rep.restarts == 1 and len(rep.faults) == 1
     assert rep.faults[0]["step"] == nan_at
     assert all(bool(torch.isfinite(t).all())
                for t in jax.tree.leaves(p, is_leaf=torch.is_tensor))
     assert int(o["step"]) == steps
     assert torch.isfinite(rep.final_metrics["loss"])
-    return rep
+    return rep, (p, o), drawn
 
 
 def test_supervisor_rolls_back_a_train_step_on_a_nan_batch(tmp_path):
     """A NaN batch poisons the in-place update; the credit counter catches
     it and the supervisor restores the last checkpoint and skips it."""
-    rep = _train_with_a_nan_batch(tmp_path, nan_at=3, ckpt_every=2, steps=6)
+    rep, _, _ = _train_with_a_nan_batch(tmp_path, nan_at=3, ckpt_every=2,
+                                        steps=6)
     assert rep.steps_done == 7          # steps 0-2, rollback to 2, 2-5
 
 
 def test_supervisor_rolls_back_to_its_start_on_an_early_nan_batch(tmp_path):
     """Before the first periodic checkpoint the rollback point is the one
     the supervisor saved at its start."""
-    rep = _train_with_a_nan_batch(tmp_path, nan_at=1, ckpt_every=100,
-                                  steps=4)
+    rep, _, _ = _train_with_a_nan_batch(tmp_path, nan_at=1, ckpt_every=100,
+                                        steps=4)
     assert rep.steps_done == 5          # step 0, rollback to 0, 0-3
 
 
