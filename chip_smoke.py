@@ -16,7 +16,13 @@ printing a result:
      streaming shapes of chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b's
      shared attention: S = the streaming trace's max_len, lens 0, S - 1
      and chunk edges, bf16 and int8 caches) — caches bit-exact, attention
-     out within tolerance; then the serving engine, its steps' graphs
+     out within tolerance; the kernels' slot-shard form (a mesh's
+     flash-decoding) over P = 1, 2, 4 and 16 blocks of one cache, reduced
+     on the card (SHARD_CASES: the streaming shape with the new token on
+     a block's first and last slot, bf16, int8 and a ring, and
+     decode_32k's per-device shape, 8 x 32768 slots) — caches bit-exact
+     against the plain version, out within tolerance, one block bit-equal
+     to the whole-cache call; then the serving engine, its steps' graphs
      captured by a warm call, replays a prefill-into-slots step and two
      decode steps under ``torch.cuda.set_sync_debug_mode("error")``
      (reduced chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b) without
@@ -27,7 +33,10 @@ printing a result:
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
      HBM rate or ops over peak rate); the split's NSPLIT and each of its
-     two kernels' device time (torch.profiler);
+     two kernels' device time (torch.profiler); the slot-shard form's
+     passes (scores, stats, p@V) at each P beside the whole-cache kernels,
+     and its one-block call and plain version, at the streaming shape and
+     at decode_32k's;
   5. daxpy: the kernel against ``daxpy_plain``, bit-exact, on the shapes and
      dtypes of tests/test_kernels.py and every length 1..5000; the kernel
      ops' main path (``kernels.ops.daxpy``, one offloaded job per size) with
@@ -54,7 +63,10 @@ printing a result:
      wall-clock fabric with the fused decode step: the kernel must launch
      28 x (decode jobs + one warm-up decode per distinct prompt length),
      every credit read must be at its threshold, every admitted request
-     completed with in-range tokens; the same with the pipelined loop; a
+     completed with in-range tokens; the same with the pipelined loop,
+     its replayed decode steps queued and awaited under
+     ``set_sync_debug_mode("error")``, its decode wall per step printed
+     beside the continuous loop's; a
      profile of warm decode steps at the streaming shape (S = 1040, four
      slot lengths); then the same trace at 4 layers in f32 on the
      simulated fabric, fused, unfused and fused-pipelined under
@@ -127,8 +139,9 @@ printing a result:
      of one rank, and chatglm3-6b at full width served through a 1x1
      ``DeviceMesh`` (``serve_workload`` given ``make_host_mesh(1, 1)``, on
      the stream trace's first 16 requests: DTensor params and caches, the
-     fused kernel on local, slot-complete cache rows): counts, launches (28
-     per decode step), credits, its decode step profiled beside phase 7's;
+     decode kernels' slot-shard form on each device's block of the cache):
+     counts, slot-shard launches (28 per decode step), credits, its decode
+     step profiled beside phase 7's;
      the trace at 4 layers f32 through the mesh, compiled and under
      ``disable_compile()``, token for token the plain path's; chatglm3-6b's
      train step (2 layers, f32) through the mesh, compiled and under
@@ -139,7 +152,9 @@ printing a result:
      qwen3-moe-235b-a22b x train_4k on 2x16x16, and phase 7's streaming
      decode step on a 1x1 mesh, held against the mesh serve's measured
      peak memory): per-device peak against 80 GiB, FLOPs against
-     ``cell_cost``, the collective census;
+     ``cell_cost``, the collective census; chatglm3-6b x decode_32k
+     gathers no cache (no all-gather as large as one layer's local k
+     cache) and its FLOPs are ``cell_cost``'s within 20 %;
  13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one card.  Without one (``torch.cuda.is_available()`` false), or
@@ -228,6 +243,25 @@ SCALAR_LOAD_CASES = [
 # launch calls cudaFuncSetAttribute: held under graph capture.
 BIG_SMEM_CASE = ("decode-g64-captured", "chatglm3-6b", 2, 160, 64, 1, 128,
                  "bf16", [5, 150], False, False, 0)
+# The decode kernels' slot-shard form (a mesh's flash-decoding: a device
+# holds a block of the slots; the softmax's max and sum and the partial
+# p@V are all-reduced over the model axis) at full width, over each P of
+# SHARD_COUNTS blocks of one card's cache, reduced on the card: chatglm3-
+# 6b's streaming shape (S = 1040: blocks of 65 slots at P = 16, the new
+# token on a block's first and last slot) in bf16 and int8 and as a ring,
+# and decode_32k's per-device shape on the 16x16 mesh (8 rows of 32768
+# slots, 2048 a block at P = 16: 268 MB of bf16 cache).
+SHARD_COUNTS = (1, 2, 4, 16)
+SHARD_CASES = [
+    ("shard-stream", "chatglm3-6b", 4, 1040, 32, 2, 128, "bf16",
+     [65, 129, 520, 1039], False, False, 0),
+    ("shard-stream-q8", "chatglm3-6b", 4, 1040, 32, 2, 128, "bf16",
+     [64, 259, 780, 0], True, False, 0),
+    ("shard-stream-ring", "chatglm3-6b", 4, 1040, 32, 2, 128, "bf16",
+     [1104, 2079, 3120, 5], False, True, 1040),
+    ("shard-decode-32k", "chatglm3-6b", 8, 32768, 32, 2, 128, "bf16",
+     [2047, 2048, 32767, 20000, 4095, 4096, 16384, 100], False, False, 0),
+]
 # The streaming path: the CLI's default trace (``python -m
 # repro_torch.launch.serve``), and the depth of its fused-vs-unfused check.
 STREAM_REQUESTS, STREAM_RATE, STREAM_SEED = 48, 2e6, 0
@@ -392,13 +426,10 @@ def check_case(case, seed, dev, offset=0) -> dict:
                                  f"version in {bad} elements")
     diff = (got[0].float() - want[0].float()).abs()
     rel = float((diff / want[0].float().abs().clamp_min(1e-30)).max())
-    tol = dict(TOL[dt])
-    if dt == "f32":
-        # The kernel and cuBLAS sum p@V in different orders: the absolute
-        # slack scales with the largest value summed (dequantised int8
-        # values reach +-12.7, random f32 ones ~4).
-        v = args[4].float() * args[9] if quant else args[4].float()
-        tol["atol"] *= max(1.0, float(v.abs().max()))
+    # f32: the kernel and cuBLAS sum p@V in different orders, so the
+    # absolute slack scales with the largest value summed (dequantised int8
+    # values reach +-12.7, random f32 ones ~4).
+    tol = _out_tolerance(dt, args, quant)
     torch.testing.assert_close(got[0], want[0], **tol,
                                msg=lambda m: f"{name}: out: {m}")
     res = {"case": name, "dtype": dt, "quant": quant, "lens": lens,
@@ -408,6 +439,53 @@ def check_case(case, seed, dev, offset=0) -> dict:
         f"{res['max_abs_err']:.3e} (max rel {rel:.3e}; rtol "
         f"{tol['rtol']}, atol {tol['atol']:.3g})")
     return res
+
+
+def _out_tolerance(dt, args, quant) -> dict:
+    tol = dict(TOL[dt])
+    if dt == "f32":
+        v = args[4].float() * args[9] if quant else args[4].float()
+        tol["atol"] *= max(1.0, float(v.abs().max()))
+    return tol
+
+
+def check_shard_case(case, shards, dev) -> dict:
+    """The slot-shard form over ``shards`` blocks of one cache (views of
+    it, reduced on the card), kernels against the plain version: caches
+    bit-exact, out within TOL; one block is the whole-cache kernel call,
+    out and caches bit for bit."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+
+    name, *_, dt, _, quant, is_ring, window = case
+    args, lens = make_inputs(case, 0, dev)
+    kw = dict(window=0 if is_ring else window, is_ring=is_ring)
+    got = DA.decode_attention_over_shards(*clone(args), shards=shards, **kw)
+    want = DA.decode_attention_over_shards(*clone(args), shards=shards,
+                                           plain=True, **kw)
+    whole = (DA.fused_decode_attention(*clone(args), **kw) if shards == 1
+             else None)
+    torch.cuda.synchronize()
+    names = ("k_cache", "v_cache", "k_scale", "v_scale")
+    for nm, g, w in zip(names, got[1:], want[1:]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} P={shards}: {nm} differs from the "
+                                 f"plain version in {int((g != w).sum())} "
+                                 "elements")
+    tol = _out_tolerance(dt, args, quant)
+    torch.testing.assert_close(got[0], want[0], **tol, msg=lambda m: (
+        f"{name} P={shards}: out: {m}"))
+    if whole is not None and not all(
+            torch.equal(g, w) for g, w in zip(got, whole)):
+        raise AssertionError(f"{name}: one block is not the whole-cache "
+                             "call bit for bit")
+    err = float((got[0].float() - want[0].float()).abs().max())
+    log(f"[shard] {name} P={shards} (blocks of {-(-case[3] // shards)} "
+        f"slots): caches bit-exact, out max|err| {err:.3e} against the "
+        f"plain version" + ("; bit-equal to the whole-cache kernel"
+                            if whole is not None else ""))
+    return {"case": name, "shards": shards, "lens": lens,
+            "max_abs_err": err, "whole_bit_equal": whole is not None}
 
 
 def time_ms(fn, dev, reps=200, warmup=20) -> float:
@@ -438,9 +516,10 @@ def _device_us(event) -> float:
     return getattr(event, "self_cuda_time_total", 0.0) if us is None else us
 
 
-def time_split(fn, dev, calls=100) -> dict:
-    """Device ms per call of each of the decode step's two kernels (mean of
-    ``calls`` profiled calls, L2 flushed before each), by kernel name."""
+def time_split(fn, dev, calls=100, parts=("scores", "pv")) -> dict:
+    """Device ms per call of each of the decode step's kernels
+    (``decode_attention_<part>``; mean of ``calls`` profiled calls, L2
+    flushed before each), by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -454,8 +533,8 @@ def time_split(fn, dev, calls=100) -> dict:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    us = {"scores": 0.0, "pv": 0.0}
-    counts = {"scores": 0, "pv": 0}
+    us = {part: 0.0 for part in parts}
+    counts = {part: 0 for part in parts}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -494,6 +573,49 @@ def time_case(case, dev) -> dict:
                 lambda: DA.decode_attention_plain(*a_plain), dev),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops}
+
+
+def time_shards(case, dev) -> dict:
+    """The slot-shard form at one case's shape: for each P of SHARD_COUNTS
+    blocks, each pass's device ms per call (scores, stats, p@V, summed
+    over the blocks; torch.profiler) and the whole call's ms with its
+    reductions on the card (CUDA events), beside the whole-cache kernels';
+    then the one-block call (the 1x1 mesh's, ``decode_attention_shard``)
+    and its plain version, with the bound of the work."""
+    import functools
+    from repro_torch.kernels import decode_attention as DA
+
+    _, _, b, s, h, kh, d, dt, _, _, is_ring, window = case
+    args, lens = make_inputs(case, 0, dev)
+    kw = dict(window=0 if is_ring else window, is_ring=is_ring)
+    call = functools.partial(DA.fused_decode_attention, *clone(args), **kw)
+    whole = time_split(call, dev)
+    whole["ms"] = time_ms(call, dev)
+    bound_ms, bound_by, nbytes, ops = bound(case, args)
+    res = {"case": case[0], "shape": f"B={b} S={s} H={h} K={kh} D={d} {dt}",
+           "lens": lens, "whole": whole, "shards": {}, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    for shards in SHARD_COUNTS:
+        fn = functools.partial(DA.decode_attention_over_shards, *clone(args),
+                               shards=shards, **kw)
+        passes = time_split(fn, dev, parts=("scores", "stats", "pv"))
+        passes["ms"] = time_ms(fn, dev, reps=50)
+        res["shards"][shards] = passes
+        log(f"[time] {case[0]} ({res['shape']}) over P={shards} blocks: "
+            f"scores {passes['scores_ms']} + stats {passes['stats_ms']} + "
+            f"p@V {passes['pv_ms']} ms of device time per call (all "
+            f"blocks), whole call with its reductions {passes['ms']:.4f} ms;"
+            f" the whole-cache kernels: scores {whole['scores_ms']} + p@V "
+            f"{whole['pv_ms']} ms, call {whole['ms']:.4f} ms; bound "
+            f"{bound_ms:.6f} ms ({bound_by})")
+    res["one_block_ms"] = time_ms(functools.partial(
+        DA.decode_attention_shard, *clone(args), **kw), dev)
+    res["one_block_plain_ms"] = time_ms(functools.partial(
+        DA.decode_attention_shard_plain, *clone(args), **kw), dev)
+    log(f"[time] {case[0]}: one-block call (the 1x1 mesh's) "
+        f"{res['one_block_ms']:.4f} ms, its plain version "
+        f"{res['one_block_plain_ms']:.4f} ms")
+    return res
 
 
 def bound(case, args) -> tuple[float, str, float, float]:
@@ -609,15 +731,58 @@ def gib(nbytes: float) -> str:
     return f"{nbytes / 2**30:.2f} GiB"
 
 
+def _decode_steps_sync_checked():
+    """Queue and await every replayed decode step of a ``ServingEngine``
+    (one whose decode graph is captured) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    stream or device sync and any blocking copy.  Returns a one-element
+    count of the decode steps so checked and an undo."""
+    import torch
+    from repro_torch.serve.batcher import ServingEngine
+
+    decode, wait = ServingEngine.decode_async, ServingEngine.wait_step
+    checked, count = set(), [0]
+
+    def sync_free(fn, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def decode_async(self, tok, caches, lens):
+        if not self._dec_jit.graphs():   # the capture itself syncs
+            return decode(self, tok, caches, lens)
+        pending = sync_free(decode, self, tok, caches, lens)
+        checked.add(id(pending))
+        return pending
+
+    def wait_step(self, pending):
+        if id(pending) not in checked:
+            return wait(self, pending)
+        checked.discard(id(pending))
+        count[0] += 1
+        return sync_free(wait, self, pending)
+
+    ServingEngine.decode_async, ServingEngine.wait_step = (decode_async,
+                                                           wait_step)
+
+    def undo():
+        ServingEngine.decode_async, ServingEngine.wait_step = decode, wait
+    return count, undo
+
+
 def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
                  requests: int = STREAM_REQUESTS, mesh=None,
-                 tag: str = "stream") -> dict:
+                 tag: str = "stream", sync_check: bool = False) -> dict:
     """The streaming path at full width: ``serve_workload`` with the CLI's
     defaults (its first ``requests`` requests) on the wall-clock fabric,
     fused decode on; ``pipeline`` runs the pipelined loop instead of the
-    continuous one; ``mesh`` (a ``DeviceMesh``) goes to the engine.  The
-    decode kernel must launch once per attention layer for every decode
-    job and warm-up decode."""
+    continuous one; ``mesh`` (a ``DeviceMesh``) goes to the engine, whose
+    decode then runs the kernels' slot-shard form.  The decode kernel must
+    launch once per attention layer for every decode job and warm-up
+    decode.  ``sync_check`` queues and awaits every replayed decode step
+    under ``set_sync_debug_mode("error")``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import credit_threshold
@@ -632,8 +797,11 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     mem_before = torch.cuda.memory_allocated(dev)
     reads, undo = _record_credit_reads()
     engines, undo_rec = _record_engines()
+    checked, undo_check = (_decode_steps_sync_checked() if sync_check
+                           else ([0], lambda: None))
+    windows, undo_window = time_loop_runs()
     try:
-        DA.LAUNCHES = 0
+        DA.LAUNCHES = DA.SHARD_LAUNCHES = 0
         t0 = time.perf_counter()
         out = serve_workload(stream_spec(requests), config=ServeConfig(
             arch=arch, reduced=False, fused_decode=True, fabric="wallclock",
@@ -642,20 +810,29 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
             mesh=mesh))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = DA.LAUNCHES
+        launches, other = ((DA.SHARD_LAUNCHES, DA.LAUNCHES) if mesh is not None
+                           else (DA.LAUNCHES, DA.SHARD_LAUNCHES))
     finally:
         undo()
         undo_rec()
+        undo_check()
+        undo_window()
     compiled = compile_report(engines, tag=tag)
     del engines
     m, reqs = out["metrics"], out["requests"]
     threshold = credit_threshold()
     n_lengths = len({r.prompt_len for r in reqs})   # one warm-up each
     expect = n_attn * (m.decode_jobs + n_lengths)
-    if launches != expect:
+    if launches != expect or other:
         raise AssertionError(f"kernel launched {launches} times while "
                              f"streaming, expected {n_attn} x "
-                             f"({m.decode_jobs} + {n_lengths})")
+                             f"({m.decode_jobs} + {n_lengths}); the other "
+                             f"form of the decode kernel {other} times")
+    # Every decode but the first warm-up one, which captures the graph.
+    if sync_check and checked[0] != m.decode_jobs + n_lengths - 1:
+        raise AssertionError(f"{checked[0]} decode steps ran under the sync "
+                             f"check, expected {m.decode_jobs} + "
+                             f"{n_lengths - 1} warm-up")
     n_reads = m.prefill_jobs + m.decode_jobs + 2 * n_lengths
     if len(reads) != n_reads or any(r != threshold for r in reads):
         raise AssertionError(f"{len(reads)} credit reads (expected "
@@ -696,6 +873,10 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
            "decode_tokens": decode_tokens, "decode_s": decode_s,
            "prefill_s": prefill_s,
            "decode_tok_s": decode_tokens / decode_s,
+           "decode_wall_ms_per_step": decode_s / m.decode_jobs * 1e3,
+           "loop_window_s": windows[0],
+           "window_decode_tok_s": decode_tokens / windows[0],
+           "sync_checked_decodes": checked[0],
            "decode_rows_tok_s": 4 * m.decode_jobs / decode_s,
            "latency_p50_s": lat["p50"] / 1e6, "latency_p99_s": lat["p99"] / 1e6,
            "ttft_p99_s": summ["ttft_us"]["p99"] / 1e6,
@@ -714,17 +895,23 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         f"{STREAM_RATE:g} req/s (seed {STREAM_SEED}), wall-clock fabric, "
         f"{loop} loop, fused decode, max_len {res['max_len']}; "
         f"memory_allocated before {gib(mem_before)}")
-    kernel = (f"kernel launches {launches} == {n_attn} x ({m.decode_jobs} + "
+    form = "slot-shard form" if mesh is not None else "kernel"
+    kernel = (f"{form} launches {launches} == {n_attn} x ({m.decode_jobs} + "
               f"{n_lengths} warm-up)" if n_attn else
               f"no attention layer, so no decode-kernel launch ({launches})")
     log(f"[{tag}] {card}: admitted {m.admitted}, rejected {m.rejected}, "
         f"completed {m.completed}; prefill jobs {m.prefill_jobs}, decode "
         f"jobs {m.decode_jobs}; {kernel}; "
         f"credit reads {len(reads)}/{n_reads} at threshold; "
-        f"{m.pipelined_prefills} pipelined prefills")
+        f"{m.pipelined_prefills} pipelined prefills"
+        + (f"; {checked[0]} replayed decode steps queued and awaited under "
+           "set_sync_debug_mode('error')" if sync_check else ""))
     log(f"[{tag}] {card}: decode {decode_tokens} tokens in {decode_s:.4f} "
-        f"s of decode-step wall = {res['decode_tok_s']:.1f} tok/s "
-        f"({res['decode_rows_tok_s']:.1f} counting all 4 rows); prefill "
+        f"s of decode-step wall ({res['decode_wall_ms_per_step']:.3f} ms "
+        f"per step) = {res['decode_tok_s']:.1f} tok/s "
+        f"({res['decode_rows_tok_s']:.1f} counting all 4 rows); over the "
+        f"loop's whole window ({windows[0]:.4f} s, prefills included) "
+        f"{res['window_decode_tok_s']:.1f} tok/s; prefill "
         f"jobs {prefill_s:.4f} s; step p50 "
         f"{res['step_p50_ms']:.2f} ms; request latency p50 "
         f"{res['latency_p50_s']:.4f} s, p99 {res['latency_p99_s']:.4f} s; "
@@ -1073,6 +1260,30 @@ def _record_engines():
     def undo():
         ServingEngine.__init__ = init
     return engines, undo
+
+
+def time_loop_runs():
+    """Time every ``ContinuousBatcher.run`` from here on on the host clock,
+    the serving loop's whole window (the engine's warm-up is before it);
+    returns the list of seconds and an undo."""
+    import torch
+    from repro_torch.serve.batcher import ContinuousBatcher
+
+    windows, run = [], ContinuousBatcher.run
+
+    def timed_run(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        return out
+
+    ContinuousBatcher.run = timed_run
+
+    def undo():
+        ContinuousBatcher.run = run
+    return windows, undo
 
 
 def compile_report(engines, plans=None, tag: str = "") -> dict:
@@ -2638,6 +2849,22 @@ def finish_dry_runs(runs, mesh_peak: int) -> dict:
                                num_shards=rec["devices"])
         want = cell_cost(cfg, rec["shape"]).flops
         fits = mem["peak_bytes"] <= H100_SXM.hbm_bytes
+        if rec["shape"] == "decode_32k":
+            # Flash-decoding: chatglm3-6b's step has no all-gather as large
+            # as one layer's local k cache (the caches are the step's
+            # aliased arguments: k and v of every attention layer; an
+            # MoE's expert weights are gathered in larger pieces).
+            block = mem["alias_bytes"] // (2 * attention_layers(cfg))
+            largest = rec["collectives"]["largest_op_bytes_by_kind"].get(
+                "all-gather", 0)
+            log(f"[dryrun] {name}: largest all-gather {largest} B, one "
+                f"layer's local k cache {block} B")
+            if rec["arch"] == ARCH and (largest >= block or abs(
+                    cost["flops"] / want - 1) > 0.2):
+                raise AssertionError(f"dry run {name}: largest all-gather "
+                                     f"{largest} B against a cache block of "
+                                     f"{block} B; FLOPs {cost['flops']:.4e} "
+                                     f"against cell_cost's {want:.4e}")
         log(f"[dryrun] {name} on {rec['mesh']} ({rec['devices']} fake "
             f"ranks; ran {rec['compile_s']} s, waited "
             f"{time.perf_counter() - t0:.1f} s): per-device peak "
@@ -2813,10 +3040,10 @@ def phase_mesh(dev, results) -> dict:
     """chatglm3-6b served through a ``DeviceMesh``: an NCCL group of one
     rank, ``serve_workload(mesh=make_host_mesh(1, 1))`` on the stream
     trace's first MESH_REQUESTS requests at full width (DTensor params and
-    caches, the fused kernel on each device's local, slot-complete cache
-    rows), its decode step profiled beside phase 7's, and the trace at 4 layers f32
-    on the simulated fabric with the mesh, token for token the plain
-    path's."""
+    caches, the decode kernels' slot-shard form on each device's block of
+    the cache), its decode step profiled beside phase 7's, and the trace
+    at 4 layers f32 on the simulated fabric with the mesh, token for token
+    the plain path's."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -2838,9 +3065,9 @@ def phase_mesh(dev, results) -> dict:
                             rank=0, world_size=1,
                             store=dist.FileStore(str(store), 1))
     calls = []
-    inner = layers._on_batch_shards
-    layers._on_batch_shards = lambda *a, **k: (calls.append(1),
-                                               inner(*a, **k))[1]
+    inner = layers._decode_on_slot_blocks
+    layers._decode_on_slot_blocks = lambda *a, **k: (calls.append(1),
+                                                     inner(*a, **k))[1]
     try:
         mesh = make_host_mesh(1, 1)
         res = {"backend": dist.get_backend(),
@@ -2859,7 +3086,7 @@ def phase_mesh(dev, results) -> dict:
                                       compiled=False)
         res["train"] = check_mesh_train(dev, mesh, results["train_checks"])
     finally:
-        layers._on_batch_shards = inner
+        layers._decode_on_slot_blocks = inner
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
     for name, streams in (("mesh", meshed), ("mesh eager", meshed_eager)):
@@ -2960,6 +3187,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     family_cases = {a: stream_cases(sms, a) for a in (MOE_ARCH, HYBRID_ARCH)}
     for cases in family_cases.values():
         results["checks"] += [check_case(c, 0, dev) for c in cases]
+    # ... and the slot-shard form over P blocks of one cache.
+    results["shard_checks"] = [check_shard_case(c, p, dev)
+                               for c in SHARD_CASES for p in SHARD_COUNTS]
+    free()
 
     # The engine queues its steps without a host sync; the kernel under
     # graph capture.
@@ -3004,6 +3235,13 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
             f"bound {st['bound_ms']:.6f} ms ({st['bound_by']}: "
             f"{st['bytes']} B); NSPLIT {st['nsplit']}")
     st = results["stream_timing"]
+    # ... and the slot-shard form at chatglm3-6b's streaming shape and at
+    # decode_32k's per-device shape, each pass beside the whole-cache
+    # kernels.
+    results["shard_timing"] = {c[0]: time_shards(c, dev)
+                               for c in (SHARD_CASES[0], SHARD_CASES[-1])}
+    sh = results["shard_timing"][SHARD_CASES[0][0]]
+    free()
 
     # 5. daxpy: check, the kernel ops' main path, timing.
     results["daxpy_check"] = check_daxpy(dev)
@@ -3028,8 +3266,20 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     # depth cut, fused against unfused.
     results["stream"] = phase_stream(dev)
     free()
-    results["stream_pipelined"] = phase_stream(dev, pipeline=True)
+    results["stream_pipelined"] = sp = phase_stream(dev, pipeline=True,
+                                                    sync_check=True)
     free()
+    sc = results["stream"]
+    log(f"[stream] {card}: decode wall per step, pipelined "
+        f"{sp['decode_wall_ms_per_step']:.3f} ms ({sp['decode_tok_s']:.1f} "
+        f"tok/s) against continuous {sc['decode_wall_ms_per_step']:.3f} ms "
+        f"({sc['decode_tok_s']:.1f} tok/s); decode tokens over the loop's "
+        f"window, pipelined {sp['window_decode_tok_s']:.1f} against "
+        f"continuous {sc['window_decode_tok_s']:.1f} tok/s (a pipelined "
+        "decode's wall leaves out its device time under the queueing of "
+        "the refill prefill behind it); pipelined calibration "
+        f"{sp['calibration']['source']}, continuous "
+        f"{sc['calibration']['source']}")
     s_len = results["stream"]["max_len"]
     results["stream_profile"] = phase_profile(
         dev, max_len=s_len, prompt_len=256,
@@ -3131,7 +3381,6 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
          "library_ms": None,
          "stream_launches": results["stream"]["launches"],
          "design_launches": results["design_point"]["launches"],
-         "mesh_launches": results["mesh"]["serve"]["launches"],
          "fleet_launches": sum(results["fleet"][t]["launches"]
                                for t in ("fleet", "fleet-chaos",
                                          "fleet-restore")),
@@ -3148,6 +3397,20 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
                  results[f"stream_timing_{arch}"]["plain_ms"]),
                 ("shape_bound_ms",
                  results[f"stream_timing_{arch}"]["bound_ms"]))}},
+        {"name": "fused_decode_attention_shard", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES,
+         "launches": results["mesh"]["serve"]["launches"],
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in results["shard_checks"]),
+         "ms": sh["one_block_ms"], "plain_ms": sh["one_block_plain_ms"],
+         "bound_ms": sh["bound_ms"], "bound_by": sh["bound_by"],
+         "library_ms": None,
+         "passes_ms": {name: {p: {k: t[k] for k in ("scores_ms", "stats_ms",
+                                                    "pv_ms", "ms")}
+                              for p, t in tm["shards"].items()}
+                       for name, tm in results["shard_timing"].items()},
+         "whole_ms": {name: tm["whole"]["ms"]
+                      for name, tm in results["shard_timing"].items()}},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

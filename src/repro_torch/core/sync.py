@@ -95,9 +95,17 @@ class CreditCounterSync:
                 "a device produced non-finite outputs")
         return got
 
-    def timed_wait(self, credits: torch.Tensor) -> tuple[int, float]:
-        """wait() plus the measured host-side blocking time in seconds."""
+    def timed_wait(self, credits: torch.Tensor,
+                   ready: torch.cuda.Event | None = None) -> tuple[int, float]:
+        """wait() plus the measured host-side blocking time in seconds.
+
+        ``ready``, an event recorded after ``credits`` was copied to the
+        host, is waited on first, inside the timer: the read then waits
+        for its own step alone, not for whatever was queued behind it.
+        """
         t0 = time.perf_counter()
+        if ready is not None:
+            ready.synchronize()
         got = self.wait(credits)
         return got, time.perf_counter() - t0
 
@@ -106,9 +114,17 @@ class CreditCounterSync:
 
 
 class PollingSync:
-    """Baseline: synchronise once per output tensor (O(outputs) host work)."""
+    """Baseline: synchronise once per output tensor (O(outputs) host work).
+
+    ``mesh`` is the ``DeviceMesh`` the outputs live on: the reference polls
+    every device's shard, so its host interactions are the mesh's device
+    count (1 without a mesh).
+    """
 
     name = "polling"
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
 
     def wait(self, outputs: Any) -> int:
         polls = 0
@@ -121,7 +137,7 @@ class PollingSync:
         return polls
 
     def host_interactions(self) -> int:
-        return 1
+        return credit_threshold(self.mesh)
 
 
 SYNCS = {"credit_counter": CreditCounterSync, "polling": PollingSync}

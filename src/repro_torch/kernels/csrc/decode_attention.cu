@@ -38,6 +38,29 @@
 // At the serving shape that is 128 CTAs for A and 128 for B.  Only the
 // summation order of the score dot and of p@V differs from one launch.
 //
+// The slot-shard form (flash-decoding over a mesh's model axis, the layout
+// the reference's partitioner gives its decode step): a device holds
+// S_local of the cache's S_total slots, from global slot `slot_base`, and
+// runs the same function on them with the softmax's statistics reduced
+// across devices by the caller's collectives, exactly as the reference's
+// partition of one softmax computes it:
+//   A. decode_attention_scores as above, its masks and the new token's
+//      slot read in global positions: only the block holding `write`
+//      writes it (a write past S_total is dropped, as everywhere);
+//   S. decode_attention_stats, one warp per score row: the row's local
+//      max, then (after an all-reduce MAX) its local sum of exp(s - M)
+//      under the global max M (then an all-reduce SUM), each taken as
+//      kernel B's step 1 takes it;
+//   B. decode_attention_pv with M and SUM given: p rounded as above, the
+//      f32 partial p@V of the local slots, not cast; the caller's
+//      all-reduce SUM of the partials and one cast finish the step.
+// A log-sum-exp merge of per-device (m, l, o) would round p under a local
+// max and move bf16 results away from the unsplit kernel, so it is not
+// used.  With one shard (slot_base 0, S_local = S_total, the collectives
+// the identity) every value is the unsplit call's, bit for bit.  The cache
+// arguments may be views of a larger cache along the slot axis: `ldb` is
+// their batch stride in slot rows (S_local for a block of its own).
+//
 // Numerics follow the plain version:
 //   * rope products and sums are rounded separately (__fmul_rn/__fadd_rn,
 //     no FMA contraction) and rounded once to the activation dtype, so the
@@ -147,6 +170,9 @@ __device__ __forceinline__ void load_row(const TC* p, float scale, float* dst) {
 //     per-vector scales, shape (B, S, K, 1)).
 // Layouts: q/out (B,1,H,D); k_new/v_new (B,1,K,D); caches (B,S,K,D);
 // lens (B,) pre-write lengths; cos/sin (B,W); scratch (B,K,G,S) f32.
+// S is the block's slot count, ldb the caches' batch stride in slot rows
+// (S for a whole cache), slot_base the global slot of local slot 0 and
+// S_total the whole cache's slot count.
 
 // A. Rope, the new token and the scores of one chunk of slots.
 template <typename TA, typename TC, int kVec>
@@ -154,8 +180,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_scores(
     const TA* __restrict__ q, const TA* __restrict__ k_new, const TA* __restrict__ v_new,
     TC* k_cache, TC* v_cache, float* k_scale, float* v_scale,
     const int* __restrict__ lens, const float* __restrict__ cos_b,
-    const float* __restrict__ sin_b, float* scratch, int S, int H, int K, int D, int W,
-    int window, int is_ring) {
+    const float* __restrict__ sin_b, float* scratch, int S, int ldb, int slot_base,
+    int S_total, int H, int K, int D, int W, int window, int is_ring) {
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   extern __shared__ float smem[];
   const int ld = D + 1;            // padded rows: a warp's rows in distinct banks
@@ -168,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_scores(
   const int lo = blockIdx.z * chunk, hi = min(lo + chunk, S);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = lens[b];
-  const int write = is_ring ? len % S : len;
+  const int write = (is_ring ? len % S_total : len) - slot_base;  // local slot
   const float* cs = cos_b + static_cast<size_t>(b) * W;
   const float* sn = sin_b + static_cast<size_t>(b) * W;
 
@@ -181,11 +207,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_scores(
 
   // 2. New token, in the one CTA whose chunk holds slot `write`: rope k,
   //    quantise k and v for int8 caches, write the slot.  A write past the
-  //    cache is dropped, as a JAX scatter drops it.
+  //    cache (or outside this block's slots) is dropped, as a JAX scatter
+  //    drops it.
   if (warp == 0 && write >= lo && write < hi) {
     const TA* kn = k_new + (static_cast<size_t>(b) * K + kv) * D;
     const TA* vn = v_new + (static_cast<size_t>(b) * K + kv) * D;
-    const size_t row = (static_cast<size_t>(b) * S + write) * K + kv;
+    const size_t row = (static_cast<size_t>(b) * ldb + write) * K + kv;
     if constexpr (kQuant) {
       float kamax = 0.f, vamax = 0.f;
       for (int d = lane; d < D; d += 32) {
@@ -215,7 +242,10 @@ __global__ void __launch_bounds__(kThreads) decode_attention_scores(
 
   // 3. Scores of the chunk, kStage rows at a time: stage the live K rows in
   //    shared memory, then one thread per (q head, slot) takes the dot.
-  const int n_live = min(len + 1, S);
+  //    Local slot pos is live iff pos < n_live and, with a window, its
+  //    global position lies inside it.
+  const int n_live = min(len + 1, S_total) - slot_base;
+  const int win_lo = len - window - slot_base;  // live iff pos > win_lo
   const float sqrt_d = sqrtf(static_cast<float>(D));
   const int groups = D / kVec;     // kVec-element groups per K row
   float* sc = scratch + (static_cast<size_t>(b) * K + kv) * G * S;
@@ -223,8 +253,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_scores(
     const int rows = min(kStage, hi - base);
     for (int i = tid; i < rows * groups; i += blockDim.x) {
       const int j = i / groups, e = i - j * groups, pos = base + j;
-      if (pos >= n_live || (window != 0 && pos <= len - window)) continue;
-      const size_t r = (static_cast<size_t>(b) * S + pos) * K + kv;
+      if (pos >= n_live || (window != 0 && pos <= win_lo)) continue;
+      const size_t r = (static_cast<size_t>(b) * ldb + pos) * K + kv;
       float ks = 1.f;
       if constexpr (kQuant) ks = k_scale[r];
       load_row<TA, TC, kVec>(k_cache + r * D + e * kVec, ks, k_s + j * ld + e * kVec);
@@ -233,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_scores(
     for (int p = tid; p < G * rows; p += blockDim.x) {
       const int g = p / rows, j = p - g * rows, pos = base + j;
       float s = kNegInf;
-      if (pos < n_live && (window == 0 || pos > len - window)) {
+      if (pos < n_live && (window == 0 || pos > win_lo)) {
         const float* qg = q_s + g * ld;
         const float* kr = k_s + j * ld;
         float acc = 0.f;
@@ -253,12 +283,40 @@ __host__ __device__ __forceinline__ int rows_per_pass(int D, int kVec) {
   return groups >= 32 ? 1 : 32 / groups;
 }
 
-// B. Softmax over the score row of one q head, then p@V.
-template <typename TA, typename TC, int kVec>
+// S. One warp per score row (B*K*G rows of S slots, q-head order): the
+//    row's max when m_in is null, else its sum of exp(s - m_in[row]).  The
+//    lanes stride the row and reduce as kernel B's step 1 does.
+__global__ void __launch_bounds__(kThreads) decode_attention_stats(
+    const float* __restrict__ scratch, const float* __restrict__ m_in,
+    float* __restrict__ out, int rows, int S) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const float* row = scratch + static_cast<size_t>(r) * S;
+  if (m_in == nullptr) {
+    float m = -INFINITY;
+    for (int pos = lane; pos < S; pos += 32) m = nan_max(m, row[pos]);
+    m = warp_max(m);
+    if (lane == 0) out[r] = m;
+  } else {
+    const float m = m_in[r];
+    float sum = 0.f;
+    for (int pos = lane; pos < S; pos += 32) sum += expf(__fsub_rn(row[pos], m));
+    sum = warp_sum(sum);
+    if (lane == 0) out[r] = sum;
+  }
+}
+
+// B. Softmax over the score row of one q head, then p@V.  kShard: the
+//    softmax's max and sum come in (stats_m, stats_s, one per row) and the
+//    f32 partial p@V of this block's slots goes out uncast.
+template <typename TA, typename TC, int kVec, bool kShard>
 __global__ void __launch_bounds__(kThreads) decode_attention_pv(
     const TC* __restrict__ v_cache, const float* __restrict__ v_scale,
-    const int* __restrict__ lens, TA* __restrict__ out, const float* __restrict__ scratch,
-    int S, int H, int K, int D) {
+    const int* __restrict__ lens,
+    typename std::conditional<kShard, float, TA>::type* __restrict__ out,
+    const float* __restrict__ scratch, const float* __restrict__ stats_m,
+    const float* __restrict__ stats_s, int S, int ldb, int slot_base, int S_total,
+    int H, int K, int D) {
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   constexpr int kMaxGroupsPerLane = (kMaxHeadDim / kVec + 31) / 32;
   extern __shared__ float part[];  // (kWarps * R, D) warp partials
@@ -268,12 +326,19 @@ __global__ void __launch_bounds__(kThreads) decode_attention_pv(
   const int G = H / K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = lens[b];
-  const int n_live = min(len + 1, S);
-  const float* row = scratch + ((static_cast<size_t>(b) * K + kv) * G + g) * S;
+  // This block's live slots: local 0 .. n_live-1 (global slot_base + ...).
+  const int n_live = max(0, min(min(len + 1, S_total) - slot_base, S));
+  const size_t row_id = (static_cast<size_t>(b) * K + kv) * G + g;
+  const float* row = scratch + row_id * S;
 
   // 1. Max and sum of the softmax over all S slots, one warp, as a single
-  //    launch took them.
-  if (warp == 0) {
+  //    launch took them (or as given).
+  if constexpr (kShard) {
+    if (tid == 0) {
+      stats[0] = stats_m[row_id];
+      stats[1] = stats_s[row_id];
+    }
+  } else if (warp == 0) {
     float m = -INFINITY;
     for (int pos = lane; pos < S; pos += 32) m = nan_max(m, row[pos]);
     m = warp_max(m);
@@ -304,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_pv(
   if (active) {
     for (int pos = warp * R + r; pos < n_live; pos += kWarps * R) {
       const float p = round_to<TA>(__fdiv_rn(expf(__fsub_rn(row[pos], m)), sum));
-      const size_t vr = (static_cast<size_t>(b) * S + pos) * K + kv;
+      const size_t vr = (static_cast<size_t>(b) * ldb + pos) * K + kv;
       float vs = 1.f;
       if constexpr (kQuant) vs = v_scale[vr];
 #pragma unroll
@@ -329,84 +394,167 @@ __global__ void __launch_bounds__(kThreads) decode_attention_pv(
   }
   __syncthreads();
 
-  // 3. Sum the kWarps * R partials in a fixed order, one cast.
+  // 3. Sum the kWarps * R partials in a fixed order; one cast (none for a
+  //    shard's partial).
   for (int d = tid; d < D; d += blockDim.x) {
     float o = 0.f;
     for (int i = 0; i < kWarps * R; ++i) o += part[i * D + d];
-    out[(static_cast<size_t>(b) * H + static_cast<size_t>(kv) * G + g) * D + d] = from_f<TA>(o);
+    const size_t at = row_id * D + d;
+    if constexpr (kShard) {
+      out[at] = o;
+    } else {
+      out[at] = from_f<TA>(o);
+    }
   }
 }
 
+// Every pointer and size a launch takes (unused ones null or 0).
+struct Args {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* k_cache;
+  void* v_cache;
+  void* k_scale;
+  void* v_scale;
+  const void* lens;
+  const void* cos_b;
+  const void* sin_b;
+  void* out;        // (B, H, D): TA for the whole call, f32 for a shard's partial
+  void* scratch;    // (B, K, G, S) f32 scores
+  float* stats_m;   // (B, H) f32: a shard's max (written by A+S, read by B)
+  float* stats_s;   // (B, H) f32: the softmax sum (read by a shard's B)
+  int B, S, ldb, slot_base, S_total, H, K, D, W, window, is_ring, nsplit;
+};
+
 template <typename TA, typename TC, int kVec>
-int launch_both(const void* q, const void* k_new, const void* v_new, void* k_cache,
-                void* v_cache, void* k_scale, void* v_scale, const void* lens,
-                const void* cos_b, const void* sin_b, void* out, void* scratch, int B,
-                int S, int H, int K, int D, int W, int window, int is_ring, int nsplit,
-                cudaStream_t stream) {
-  const int G = H / K;
-  const size_t smem_a = static_cast<size_t>(G + kStage) * (D + 1) * sizeof(float);
+int launch_scores(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.K;
+  const size_t smem_a = static_cast<size_t>(G + kStage) * (a.D + 1) * sizeof(float);
   auto ka = decode_attention_scores<TA, TC, kVec>;
   if (smem_a > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         ka, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_a));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  ka<<<dim3(B, K, nsplit), kThreads, smem_a, stream>>>(
-      static_cast<const TA*>(q), static_cast<const TA*>(k_new),
-      static_cast<const TA*>(v_new), static_cast<TC*>(k_cache),
-      static_cast<TC*>(v_cache), static_cast<float*>(k_scale),
-      static_cast<float*>(v_scale), static_cast<const int*>(lens),
-      static_cast<const float*>(cos_b), static_cast<const float*>(sin_b),
-      static_cast<float*>(scratch), S, H, K, D, W, window, is_ring);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem_b = static_cast<size_t>(kWarps) * rows_per_pass(D, kVec) * D * sizeof(float);
-  decode_attention_pv<TA, TC, kVec><<<dim3(B, K, G), kThreads, smem_b, stream>>>(
-      static_cast<const TC*>(v_cache), static_cast<const float*>(v_scale),
-      static_cast<const int*>(lens), static_cast<TA*>(out),
-      static_cast<const float*>(scratch), S, H, K, D);
+  ka<<<dim3(a.B, a.K, a.nsplit), kThreads, smem_a, stream>>>(
+      static_cast<const TA*>(a.q), static_cast<const TA*>(a.k_new),
+      static_cast<const TA*>(a.v_new), static_cast<TC*>(a.k_cache),
+      static_cast<TC*>(a.v_cache), static_cast<float*>(a.k_scale),
+      static_cast<float*>(a.v_scale), static_cast<const int*>(a.lens),
+      static_cast<const float*>(a.cos_b), static_cast<const float*>(a.sin_b),
+      static_cast<float*>(a.scratch), a.S, a.ldb, a.slot_base, a.S_total, a.H, a.K,
+      a.D, a.W, a.window, a.is_ring);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TA, typename TC, int kVec, bool kShard>
+int launch_pv(const Args& a, cudaStream_t stream) {
+  using TO = typename std::conditional<kShard, float, TA>::type;
+  const size_t smem_b =
+      static_cast<size_t>(kWarps) * rows_per_pass(a.D, kVec) * a.D * sizeof(float);
+  decode_attention_pv<TA, TC, kVec, kShard>
+      <<<dim3(a.B, a.K, a.H / a.K), kThreads, smem_b, stream>>>(
+          static_cast<const TC*>(a.v_cache), static_cast<const float*>(a.v_scale),
+          static_cast<const int*>(a.lens), static_cast<TO*>(a.out),
+          static_cast<const float*>(a.scratch), a.stats_m, a.stats_s, a.S, a.ldb,
+          a.slot_base, a.S_total, a.H, a.K, a.D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_stats(const float* scratch, const float* m_in, float* out, int rows, int S,
+                 cudaStream_t stream) {
+  decode_attention_stats<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      scratch, m_in, out, rows, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Phase { kWhole, kShardScores, kShardPv };
+
+template <typename TA, typename TC, int kVec>
+int run_phase(Phase phase, const Args& a, cudaStream_t stream) {
+  int rc = 0;
+  if (phase != kShardPv) {
+    rc = launch_scores<TA, TC, kVec>(a, stream);
+    if (rc != 0) return rc;
+  }
+  if (phase == kShardScores) {
+    return launch_stats(static_cast<const float*>(a.scratch), nullptr, a.stats_m,
+                        a.B * a.H, a.S, stream);
+  }
+  if (phase == kShardPv) return launch_pv<TA, TC, kVec, true>(a, stream);
+  return launch_pv<TA, TC, kVec, false>(a, stream);
+}
+
 template <typename TA, typename TC>
-int launch(const void* q, const void* k_new, const void* v_new, void* k_cache,
-           void* v_cache, void* k_scale, void* v_scale, const void* lens,
-           const void* cos_b, const void* sin_b, void* out, void* scratch, int B,
-           int S, int H, int K, int D, int W, int window, int is_ring, int nsplit,
-           void* stream) {
+int launch(Phase phase, const Args& a, void* stream) {
   // 16-byte cache loads where every row starts on a 16-byte boundary.
   constexpr int kVec = 16 / sizeof(TC);
-  const bool vec = (static_cast<size_t>(D) * sizeof(TC)) % 16 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(k_cache) |
-                     reinterpret_cast<uintptr_t>(v_cache)) & 15) == 0;
+  const bool vec = (static_cast<size_t>(a.D) * sizeof(TC)) % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.k_cache) |
+                     reinterpret_cast<uintptr_t>(a.v_cache)) & 15) == 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    return launch_both<TA, TC, kVec>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
-                                     lens, cos_b, sin_b, out, scratch, B, S, H, K, D, W,
-                                     window, is_ring, nsplit, s);
-  }
-  return launch_both<TA, TC, 1>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, lens,
-                                cos_b, sin_b, out, scratch, B, S, H, K, D, W, window,
-                                is_ring, nsplit, s);
+  if (vec) return run_phase<TA, TC, kVec>(phase, a, s);
+  return run_phase<TA, TC, 1>(phase, a, s);
 }
 
 }  // namespace
 
-// Plain C entry points, one per (activation, cache) dtype pair.  Each
-// launches both kernels on `stream`, the scores over `nsplit` chunks of
-// slots, and returns cudaGetLastError() (0 on success).
-#define DECODE_ATTENTION_ENTRY(NAME, TA, TC)                                         \
-  extern "C" int NAME(const void* q, const void* k_new, const void* v_new,           \
-                      void* k_cache, void* v_cache, void* k_scale, void* v_scale,    \
-                      const void* lens, const void* cos_b, const void* sin_b,        \
-                      void* out, void* scratch, int B, int S, int H, int K, int D,   \
-                      int W, int window, int is_ring, int nsplit, void* stream) {    \
-    return launch<TA, TC>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, lens, \
-                          cos_b, sin_b, out, scratch, B, S, H, K, D, W, window,      \
-                          is_ring, nsplit, stream);                                  \
+// Plain C entry points, one set per (activation, cache) dtype pair; each
+// launches on `stream` and returns cudaGetLastError() (0 on success).
+//   NAME: the whole call, both kernels, the scores over `nsplit` chunks;
+//   NAME_shard_scores: kernel A on a slot shard and the local max of each
+//     score row into m_out (B, H);
+//   NAME_shard_pv: kernel B on a slot shard under the global max m and sum
+//     s, the f32 partial p@V into out (B, H, D).
+// decode_attention_shard_sum (dtype-free) takes the local softmax sums.
+#define DECODE_ATTENTION_ENTRY(NAME, TA, TC)                                          \
+  extern "C" int NAME(const void* q, const void* k_new, const void* v_new,            \
+                      void* k_cache, void* v_cache, void* k_scale, void* v_scale,     \
+                      const void* lens, const void* cos_b, const void* sin_b,         \
+                      void* out, void* scratch, int B, int S, int H, int K, int D,    \
+                      int W, int window, int is_ring, int nsplit, void* stream) {     \
+    const Args a{q,       k_new,   v_new,   k_cache, v_cache, k_scale, v_scale,       \
+                 lens,    cos_b,   sin_b,   out,     scratch, nullptr, nullptr,       \
+                 B,       S,       S,       0,       S,       H,       K,             \
+                 D,       W,       window,  is_ring, nsplit};                         \
+    return launch<TA, TC>(kWhole, a, stream);                                         \
+  }                                                                                   \
+  extern "C" int NAME##_shard_scores(                                                 \
+      const void* q, const void* k_new, const void* v_new, void* k_cache,             \
+      void* v_cache, void* k_scale, void* v_scale, const void* lens,                  \
+      const void* cos_b, const void* sin_b, void* m_out, void* scratch, int B, int S, \
+      int ldb, int slot_base, int S_total, int H, int K, int D, int W, int window,    \
+      int is_ring, int nsplit, void* stream) {                                        \
+    const Args a{q,       k_new,     v_new,   k_cache, v_cache,                       \
+                 k_scale, v_scale,   lens,    cos_b,   sin_b,                         \
+                 nullptr, scratch,   static_cast<float*>(m_out), nullptr,             \
+                 B,       S,         ldb,     slot_base, S_total,                     \
+                 H,       K,         D,       W,       window,                        \
+                 is_ring, nsplit};                                                    \
+    return launch<TA, TC>(kShardScores, a, stream);                                   \
+  }                                                                                   \
+  extern "C" int NAME##_shard_pv(void* k_cache, void* v_cache, void* v_scale,         \
+                                 const void* lens, void* out, void* scratch,          \
+                                 void* m, void* s, int B, int S, int ldb,             \
+                                 int slot_base, int S_total, int H, int K, int D,     \
+                                 void* stream) {                                      \
+    const Args a{nullptr, nullptr,  nullptr, k_cache, v_cache,                        \
+                 nullptr, v_scale,  lens,    nullptr, nullptr,                        \
+                 out,     scratch,  static_cast<float*>(m), static_cast<float*>(s),   \
+                 B,       S,        ldb,     slot_base, S_total,                      \
+                 H,       K,        D,       0,       0,                              \
+                 0,       0};                                                         \
+    return launch<TA, TC>(kShardPv, a, stream);                                       \
   }
 
 DECODE_ATTENTION_ENTRY(decode_attention_f32, float, float)
 DECODE_ATTENTION_ENTRY(decode_attention_bf16, __nv_bfloat16, __nv_bfloat16)
 DECODE_ATTENTION_ENTRY(decode_attention_q8_f32, float, int8_t)
 DECODE_ATTENTION_ENTRY(decode_attention_q8_bf16, __nv_bfloat16, int8_t)
+
+extern "C" int decode_attention_shard_sum(const void* scratch, const void* m, void* out,
+                                          int rows, int S, void* stream) {
+  return launch_stats(static_cast<const float*>(scratch), static_cast<const float*>(m),
+                      static_cast<float*>(out), rows, S, static_cast<cudaStream_t>(stream));
+}

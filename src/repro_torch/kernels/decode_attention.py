@@ -28,6 +28,20 @@ Two implementations of the same function live here:
 lie on the CPU; CUDA tensors go to the kernels or raise.  Every call that
 launches them adds one to ``LAUNCHES`` (one call, two launches), so a
 serving run counts one per attention layer and decode step.
+
+The slot-shard form, ``decode_attention_shard`` (and its plain version
+``decode_attention_shard_plain``), is the same step on one device's block
+of a cache whose slots are split over a mesh's model axis
+(flash-decoding): the block's scores, then the softmax's max and sum and
+the partial p@V, each reduced over the devices by the caller's
+collectives (``all_max``, ``all_sum``), then one cast.  That is the
+reference's decode step as its partitioner splits it over the slots, so
+no device gathers the cache.  With one block and no collective it is the
+whole call, bit for bit.  ``decode_attention_over_shards`` runs several
+blocks of one cache side by side on one device, reduced there, which is
+how the tests and the chip smoke run hold the form.  Every block whose
+kernels launch adds one to ``SHARD_LAUNCHES`` (four launches: scores, max,
+sum, p@V); an empty block launches none and counts nothing.
 """
 
 from __future__ import annotations
@@ -45,6 +59,8 @@ NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
 #: Kernel launches since import (or since a caller last set it to 0).
 LAUNCHES = 0
+#: Slot-shard blocks whose kernels launched, counted as ``LAUNCHES``.
+SHARD_LAUNCHES = 0
 
 _ENTRIES = {
     (torch.float32, torch.float32): "decode_attention_f32",
@@ -57,6 +73,10 @@ _MAX_SMEM = 227 * 1024       # shared memory one Hopper CTA may use
 _STAGE = 32                  # K rows kernel A stages at a time (kStage)
 _MIN_CHUNK = 8               # about the fewest slots worth a CTA of kernel A
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_SCORES_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
+                    + [ctypes.c_void_p])
+_PV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SUM_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def split_plan(batch: int, kv_heads: int, slots: int,
@@ -136,33 +156,49 @@ def write_slots(cache: torch.Tensor, rows: torch.Tensor, write: torch.Tensor,
     """``cache[rows, write] = val`` in place, a write past the cache dropped
     as the reference's scatter and the kernel drop it (a freed slot keeps
     its last length, which runs one past the cache after a request
-    restored from a checkpoint finishes at ``max_len``).  No host sync: a
-    dropped row writes its last slot's own value back."""
+    restored from a checkpoint finishes at ``max_len``).  A negative
+    ``write`` (a slot before a shard's block) is dropped too.  No host
+    sync: a dropped row writes its last slot's own value back."""
     slots = cache.shape[1]
-    inside = write < slots
+    if slots == 0:          # an empty block of a cache holds no slot
+        return
+    inside = (write >= 0) & (write < slots)
     at = torch.where(inside, write, slots - 1)
     keep = inside.view(-1, *([1] * (val.dim() - 1)))
     cache[rows, at] = torch.where(keep, val.to(cache.dtype), cache[rows, at])
 
 
-def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
-                           sin, k_scale=None, v_scale=None, *, window: int = 0,
-                           is_ring: bool = False):
-    """Plain PyTorch version of the kernel, step for step; same signature
-    and return value as :func:`fused_decode_attention`."""
+def live_slots(lens: torch.Tensor, size: int, *, slot_base: int = 0,
+               window: int = 0) -> torch.Tensor:
+    """(B, size) mask of the live slots of a block holding global slots
+    ``slot_base ...``: positions before ``lens`` (B,), which counts the new
+    token, and within the last ``window`` of them (0: no window)."""
+    pos = slot_base + torch.arange(size, device=lens.device)
+    mask = pos[None, :] < lens[:, None]
+    if window:
+        mask &= pos[None, :] > lens[:, None] - 1 - window
+    return mask
+
+
+def _plain_scores(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
+                  v_scale, *, window: int, is_ring: bool, slot_base: int,
+                  slots: int):
+    """Rope, quantise and write the new token, then score the block: the
+    masked f32 scores (B, K, G, S_block) and the block's values in the
+    activation dtype.  The block holds global slots ``slot_base ...`` of a
+    ``slots``-slot cache; it writes the new token only if its slot lies
+    inside."""
     b, _, h, d = q.shape
-    slots, kh = k_cache.shape[1], k_new.shape[2]
+    block, kh = k_cache.shape[1], k_new.shape[2]
     g = h // kh
-    quant = k_scale is not None
-    lens = _lens(cache_len, b, q.device).long()
-    write = lens % slots if is_ring else lens
+    write = (lens % slots if is_ring else lens) - slot_base
     w = cos.shape[-1]
     cos2 = cos.float().reshape(b, w)
     sin2 = sin.float().reshape(b, w)
     qr = _rope(q, cos2, sin2)                       # (B, 1, H, D)
     kr = _rope(k_new, cos2, sin2)                   # (B, 1, K, D)
     rows = torch.arange(b, device=q.device)
-    if quant:
+    if k_scale is not None:
         kq, ksc = quantize_kv(kr)
         vq, vsc = quantize_kv(v_new)
         write_slots(k_cache, rows, write, kq[:, 0])
@@ -178,33 +214,148 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     qg = qr.reshape(b, kh, g, d)                    # K-major head groups
     s = _true_div(torch.einsum("bkgd,bskd->bkgs", qg.float(), k_full.float()),
                   math.sqrt(d))
-    pos = torch.arange(slots, device=q.device)
-    mask = pos[None, :] < (lens + 1)[:, None]
-    if window:
-        mask &= pos[None, :] > (lens - window)[:, None]
-    s = torch.where(mask[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)                    # one full-length softmax
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_full.dtype).float(),
-                       v_full.float())
-    out = out.reshape(b, 1, h, d).to(q.dtype)
-    if quant:
+    mask = live_slots(lens + 1, block, slot_base=slot_base, window=window)
+    return torch.where(mask[:, None, None, :], s, NEG_INF), v_full
+
+
+def _returned(out, k_cache, v_cache, k_scale, v_scale):
+    if k_scale is not None:
         return out, k_cache, v_cache, k_scale, v_scale
     return out, k_cache, v_cache
 
 
+def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
+                           sin, k_scale=None, v_scale=None, *, window: int = 0,
+                           is_ring: bool = False):
+    """Plain PyTorch version of the kernel, step for step; same signature
+    and return value as :func:`fused_decode_attention`."""
+    b, _, h, d = q.shape
+    lens = _lens(cache_len, b, q.device).long()
+    s, v_full = _plain_scores(q, k_new, v_new, k_cache, v_cache, lens, cos,
+                              sin, k_scale, v_scale, window=window,
+                              is_ring=is_ring, slot_base=0,
+                              slots=k_cache.shape[1])
+    p = torch.softmax(s, dim=-1)                    # one full-length softmax
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_full.dtype).float(),
+                       v_full.float())
+    out = out.reshape(b, 1, h, d).to(q.dtype)
+    return _returned(out, k_cache, v_cache, k_scale, v_scale)
+
+
+# --------------------------------------------------------------------------- #
+# The slot-shard form
+# --------------------------------------------------------------------------- #
+def slot_blocks(slots: int, shards: int) -> list[tuple[int, int]]:
+    """``(slot_base, size)`` of each of ``shards`` blocks of a ``slots``-slot
+    axis, as DTensor's ``Shard`` cuts it: blocks of ``ceil(slots /
+    shards)``, the last ones shorter or empty."""
+    chunk = -(-slots // shards)
+    return [(min(i * chunk, slots), max(0, min(chunk, slots - i * chunk)))
+            for i in range(shards)]
+
+
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype):
+    """The softmax and p@V of masked block scores s (B, K, G, S_block) f32
+    over values v (B, S_block, K, D), as a generator: it yields each
+    quantity to reduce over the blocks, ``("max", (B, H))``, ``("sum",
+    (B, H))`` and ``("sum", (B, H, D))``, is sent the reduced value, and
+    returns the (B, 1, H, D) output in ``dtype``: p = exp(s - M) / SUM
+    rounded to v's dtype, the f32 partial p@V, its sum cast once."""
+    b, kh, g, block = s.shape
+    d = v.shape[-1]
+    local_max = (s.amax(dim=-1) if block else
+                 s.new_full((b, kh, g), -math.inf))
+    m = yield "max", local_max.reshape(b, kh * g)
+    e = torch.exp(s - m.reshape(b, kh, g, 1))
+    total = yield "sum", e.sum(dim=-1).reshape(b, kh * g)
+    p = (e / total.reshape(b, kh, g, 1)).to(v.dtype)
+    part = torch.einsum("bkgs,bskd->bkgd", p.float(), v.float())
+    out = yield "sum", part.reshape(b, kh * g, d)
+    return out.reshape(b, 1, kh * g, d).to(dtype)
+
+
+def _reduce_with(steps, all_max, all_sum):
+    """Run a block's step generator, reducing each yielded quantity with
+    ``all_max`` or ``all_sum`` (None: the block is the whole cache)."""
+    kind, val = next(steps)
+    while True:
+        fn = all_max if kind == "max" else all_sum
+        try:
+            kind, val = steps.send(val if fn is None else fn(val))
+        except StopIteration as done:
+            return done.value
+
+
+def shard_softmax_pv(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
+                     all_max=None, all_sum=None) -> torch.Tensor:
+    """The slot-shard form's softmax and p@V of one block's masked scores
+    s (B, K, G, S_block) f32 and values v (B, S_block, K, D): the max and
+    the sum of the softmax and the f32 partial p@V reduced over the blocks
+    by ``all_max``/``all_sum``; the (B, 1, H, D) output in ``dtype``."""
+    return _reduce_with(_softmax_pv(s, v, dtype), all_max, all_sum)
+
+
+def _plain_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos, sin,
+                       k_scale, v_scale, *, slot_base, slots, window, is_ring):
+    lens = _lens(cache_len, q.shape[0], q.device).long()
+    s, v_full = _plain_scores(q, k_new, v_new, k_cache, v_cache, lens, cos,
+                              sin, k_scale, v_scale, window=window,
+                              is_ring=is_ring, slot_base=slot_base,
+                              slots=slots)
+    return (yield from _softmax_pv(s, v_full, q.dtype))
+
+
+def decode_attention_shard_plain(q, k_new, v_new, k_cache, v_cache, cache_len,
+                                 cos, sin, k_scale=None, v_scale=None, *,
+                                 slot_base: int = 0, slots: int | None = None,
+                                 window: int = 0, is_ring: bool = False,
+                                 all_max=None, all_sum=None):
+    """Plain PyTorch version of the slot-shard form, the same decomposition;
+    same signature and return value as :func:`decode_attention_shard`."""
+    slots = k_cache.shape[1] if slots is None else slots
+    out = _reduce_with(_plain_shard_steps(
+        q, k_new, v_new, k_cache, v_cache, cache_len, cos, sin, k_scale,
+        v_scale, slot_base=slot_base, slots=slots, window=window,
+        is_ring=is_ring), all_max, all_sum)
+    return _returned(out, k_cache, v_cache, k_scale, v_scale)
+
+
+def _batch_stride(caches: dict) -> int:
+    """The caches' common batch stride in slot rows, where each is
+    contiguous but for its batch stride (a block of a larger cache along
+    the slot axis, such as ``cache[:, a:b]``); raises otherwise."""
+    strides = set()
+    for name, t in caches.items():
+        b, slots, kh, d = t.shape
+        if t.stride()[1:] != (kh * d, d, 1) or t.stride(0) % (kh * d):
+            raise ValueError(f"{name} must be contiguous but for its batch "
+                             "stride")
+        strides.add(t.stride(0) // (kh * d) if b > 1 else slots)
+    if len(strides) != 1 or min(strides) < next(iter(caches.values())
+                                                ).shape[1]:
+        raise ValueError(f"the caches' batch strides differ: {strides}")
+    return strides.pop()
+
+
 def _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
-           v_scale, window) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+           v_scale, window, shard: bool = False) -> int:
+    """Raise on anything the CUDA kernel does not take; returns the caches'
+    batch stride in slot rows (a shard's blocks may be views of a larger
+    cache along the slot axis, a whole call's caches are contiguous)."""
     quant = k_scale is not None
-    tensors = {"q": q, "k_new": k_new, "v_new": v_new, "k_cache": k_cache,
-               "v_cache": v_cache, "cache_len": lens, "cos": cos, "sin": sin}
+    tensors = {"q": q, "k_new": k_new, "v_new": v_new, "cache_len": lens,
+               "cos": cos, "sin": sin}
+    caches = {"k_cache": k_cache, "v_cache": v_cache}
     if quant:
-        tensors.update(k_scale=k_scale, v_scale=v_scale)
+        caches.update(k_scale=k_scale, v_scale=v_scale)
     elif v_scale is not None:
         raise ValueError("v_scale given without k_scale")
-    for name, t in tensors.items():
+    if not shard:
+        tensors.update(caches)
+    for name, t in {**tensors, **caches}.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     b, one, h, d = q.shape
@@ -247,6 +398,23 @@ def _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
                          "shared memory")
     if window < 0:
         raise ValueError("window must be >= 0")
+    return _batch_stride(caches) if shard else slots
+
+
+def _entry(name: str, argtypes):
+    fn = getattr(_build.library("decode_attention"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _called(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"decode_attention {what} launch failed: "
+                           f"cudaError {rc}")
 
 
 def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
@@ -256,28 +424,21 @@ def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
            v_scale, window)
     b, _, h, d = q.shape
     slots, kh = k_cache.shape[1], k_cache.shape[2]
-    lib = _build.library("decode_attention")
-    fn = getattr(lib, _ENTRIES[(q.dtype, k_cache.dtype)])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _entry(_ENTRIES[(q.dtype, k_cache.dtype)], _ARGTYPES)
     out = torch.empty_like(q)
     scratch = torch.empty((b, kh, h // kh, slots), dtype=torch.float32,
                           device=q.device)
     # The SM count is cached by torch; reading it does not sync the stream.
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     nsplit, _ = split_plan(b, kh, slots, sms)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(ptr(q), ptr(k_new), ptr(v_new), ptr(k_cache), ptr(v_cache),
-                ptr(k_scale), ptr(v_scale), ptr(lens), ptr(cos), ptr(sin),
-                ptr(out), ptr(scratch), b, slots, h, kh, d, cos.shape[-1],
-                int(window), int(bool(is_ring)), nsplit, stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_cache),
+                _ptr(v_cache), _ptr(k_scale), _ptr(v_scale), _ptr(lens),
+                _ptr(cos), _ptr(sin), _ptr(out), _ptr(scratch), b, slots, h,
+                kh, d, cos.shape[-1], int(window), int(bool(is_ring)),
+                nsplit, stream)
+    _called(rc, "kernel")
     LAUNCHES += 1
     return out
 
@@ -307,10 +468,141 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     sin2 = sin.to(torch.float32).reshape(b, w).contiguous()
     out = _launch(q, k_new, v_new, k_cache, v_cache, lens, cos2, sin2,
                   k_scale, v_scale, window, is_ring)
-    if k_scale is not None:
-        return out, k_cache, v_cache, k_scale, v_scale
-    return out, k_cache, v_cache
+    return _returned(out, k_cache, v_cache, k_scale, v_scale)
 
 
-__all__ = ["fused_decode_attention", "decode_attention_plain", "pick_chunk",
-           "quantize_kv", "split_plan", "NEG_INF"]
+def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
+                        sin, k_scale, v_scale, *, slot_base, slots, window,
+                        is_ring):
+    """The slot-shard form on the card, as a generator like
+    :func:`_softmax_pv`: kernel A and the local max, the local sum under
+    the reduced max, the f32 partial p@V under the reduced max and sum.
+    A block that launched its kernels adds one to ``SHARD_LAUNCHES``."""
+    global SHARD_LAUNCHES
+    b, _, h, d = q.shape
+    block, kh = k_cache.shape[1], k_cache.shape[2]
+    w = cos.shape[-1]
+    lens = _lens(cache_len, b, q.device)
+    cos2 = cos.to(torch.float32).reshape(b, w).contiguous()
+    sin2 = sin.to(torch.float32).reshape(b, w).contiguous()
+    ldb = _check(q, k_new, v_new, k_cache, v_cache, lens, cos2, sin2,
+                 k_scale, v_scale, window, shard=True)
+    if not 0 <= slot_base <= slot_base + block <= slots:
+        raise ValueError(f"block of {block} slots from {slot_base} is not "
+                         f"inside a cache of {slots}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    name = _ENTRIES[(q.dtype, k_cache.dtype)]
+    scratch = torch.empty((b, kh, h // kh, block), **f32)
+    if block:      # the kernels write every element
+        local_max, local_sum, part = (torch.empty(shape, **f32) for shape in
+                                      ((b, h), (b, h), (b, h, d)))
+    else:          # an empty block holds nothing: max -inf, sums 0
+        local_max = torch.full((b, h), -math.inf, **f32)
+        local_sum, part = torch.zeros((b, h), **f32), torch.zeros((b, h, d),
+                                                                  **f32)
+
+    def launch(entry, argtypes, what, *args):
+        if not block:
+            return
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            _called(_entry(entry, argtypes)(*args, stream), what)
+
+    # The SM count is cached by torch; reading it does not sync the stream.
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit, _ = split_plan(b, kh, max(block, 1), sms)
+    launch(name + "_shard_scores", _SCORES_ARGTYPES, "shard scores",
+           _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_cache), _ptr(v_cache),
+           _ptr(k_scale), _ptr(v_scale), _ptr(lens), _ptr(cos2), _ptr(sin2),
+           _ptr(local_max), _ptr(scratch), b, block, ldb, slot_base, slots, h,
+           kh, d, w, int(window), int(bool(is_ring)), nsplit)
+    m = (yield "max", local_max).to(torch.float32).contiguous()
+    launch("decode_attention_shard_sum", _SUM_ARGTYPES, "shard sum",
+           _ptr(scratch), _ptr(m), _ptr(local_sum), b * h, block)
+    total = (yield "sum", local_sum).to(torch.float32).contiguous()
+    launch(name + "_shard_pv", _PV_ARGTYPES, "shard p@V", _ptr(k_cache),
+           _ptr(v_cache), _ptr(v_scale), _ptr(lens), _ptr(part),
+           _ptr(scratch), _ptr(m), _ptr(total), b, block, ldb, slot_base,
+           slots, h, kh, d)
+    if block:      # all three launches returned; an empty block made none
+        SHARD_LAUNCHES += 1
+    out = yield "sum", part
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _shard_steps(q, *args, **kw):
+    """The block's step generator: the kernels' for CUDA tensors, the
+    plain version's for CPU tensors."""
+    if q.device.type == "cpu":
+        return _plain_shard_steps(q, *args, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode-attention kernel for {q.device}")
+    return _kernel_shard_steps(q, *args, **kw)
+
+
+def decode_attention_shard(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
+                           sin, k_scale=None, v_scale=None, *,
+                           slot_base: int = 0, slots: int | None = None,
+                           window: int = 0, is_ring: bool = False,
+                           all_max=None, all_sum=None):
+    """One fused decode-attention step on a block of a cache's slots;
+    returns ``(out, caches...)`` like :func:`fused_decode_attention`.
+
+    The caches are one device's (B, S_block, K, D) block (and scales) of a
+    cache of ``slots`` slots (default: the block is the whole cache),
+    holding global slots ``slot_base ...``; views of a larger cache along
+    the slot axis are taken.  The new token is written only by the block
+    that holds its slot.  ``all_max`` and ``all_sum`` reduce a tensor over
+    the devices holding the cache's other blocks (a collective over the
+    model axis); None is the identity, right for a block that is the whole
+    cache, which then gives the whole call's values bit for bit.  CPU
+    tensors run the plain version; CUDA tensors launch the kernels (one
+    count in ``SHARD_LAUNCHES``; an empty block launches and counts
+    nothing).
+    """
+    slots = k_cache.shape[1] if slots is None else slots
+    out = _reduce_with(_shard_steps(
+        q, k_new, v_new, k_cache, v_cache, cache_len, cos, sin, k_scale,
+        v_scale, slot_base=slot_base, slots=slots, window=window,
+        is_ring=is_ring), all_max, all_sum)
+    return _returned(out, k_cache, v_cache, k_scale, v_scale)
+
+
+def decode_attention_over_shards(q, k_new, v_new, k_cache, v_cache, cache_len,
+                                 cos, sin, k_scale=None, v_scale=None, *,
+                                 shards: int, window: int = 0,
+                                 is_ring: bool = False, plain: bool = False):
+    """The slot-shard form over ``shards`` blocks (``slot_blocks``) of one
+    device's whole cache, views of it, run side by side and reduced on
+    that device with ``torch.stack(...).amax/sum``: the mesh's
+    decomposition without a mesh.  ``plain`` runs the plain version on any
+    device.  Returns ``(out, caches...)`` like the whole call; each
+    non-empty block whose kernels launch adds one to ``SHARD_LAUNCHES``."""
+    slots = k_cache.shape[1]
+    steps = []
+    for base, size in slot_blocks(slots, shards):
+        view = [None if t is None else t[:, base:base + size]
+                for t in (k_cache, v_cache, k_scale, v_scale)]
+        args = (q, k_new, v_new, view[0], view[1], cache_len, cos, sin,
+                view[2], view[3])
+        kw = dict(slot_base=base, slots=slots, window=window,
+                  is_ring=is_ring)
+        steps.append(_plain_shard_steps(*args, **kw) if plain
+                     else _shard_steps(*args, **kw))
+    vals = [next(st) for st in steps]
+    while True:
+        kind = vals[0][0]
+        stacked = torch.stack([v for _, v in vals])
+        red = stacked.amax(dim=0) if kind == "max" else stacked.sum(dim=0)
+        try:
+            vals = [st.send(red) for st in steps]
+        except StopIteration as done:
+            out = done.value
+            break
+    return _returned(out, k_cache, v_cache, k_scale, v_scale)
+
+
+__all__ = ["fused_decode_attention", "decode_attention_plain",
+           "decode_attention_shard", "decode_attention_shard_plain",
+           "decode_attention_over_shards", "shard_softmax_pv", "slot_blocks",
+           "live_slots", "pick_chunk", "quantize_kv", "split_plan", "NEG_INF"]

@@ -23,7 +23,8 @@ state donated, forward, backward, clipping and AdamW in one executable).  A
     next step queued.  The graphs of one owner may share one memory pool
     (``pool=``, a ``torch.cuda.graph_pool_handle()``): only the steps'
     transients live there;
-  * host-side launch counters (``LAUNCHES`` of the kernel modules) count a
+  * host-side launch counters (``LAUNCHES`` of the kernel modules, and
+    ``SHARD_LAUNCHES`` of the decode kernel's slot-shard form) count a
     capture as nothing and add the captured launches on every replay;
   * on CPU tensors (``device="cpu"``) the step runs eagerly on the same
     static buffers each call, with the same copy-in and copy-out.
@@ -44,8 +45,12 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
-# Kernel modules whose ``LAUNCHES`` count launches on the host.
-_COUNTED_KERNELS = ("decode_attention", "daxpy", "fused_adamw")
+# Host-side launch counters: (name in ``stats()``, kernel module, counter).
+_COUNTED_KERNELS = (("decode_attention", "decode_attention", "LAUNCHES"),
+                    ("decode_attention_shard", "decode_attention",
+                     "SHARD_LAUNCHES"),
+                    ("daxpy", "daxpy", "LAUNCHES"),
+                    ("fused_adamw", "fused_adamw", "LAUNCHES"))
 
 
 class _Mode:
@@ -66,9 +71,10 @@ def disable_compile():
         _MODE.disabled = prev
 
 
-def _kernel_modules() -> list:
-    return [importlib.import_module(f"repro_torch.kernels.{name}")
-            for name in _COUNTED_KERNELS]
+def _counters() -> list[tuple[str, Any, str]]:
+    """(name, module, attribute) of every host-side launch counter."""
+    return [(name, importlib.import_module(f"repro_torch.kernels.{mod}"),
+             attr) for name, mod, attr in _COUNTED_KERNELS]
 
 
 def _leaf_key(x) -> tuple:
@@ -122,8 +128,8 @@ class CompiledStep:
                          for k in key[1]],
                  "captured": e.graph is not None, "capture_s": e.capture_s,
                  "pool_bytes": e.pool_bytes, "calls": e.calls,
-                 "launches_per_replay": {m.__name__.rsplit(".", 1)[-1]: n
-                                         for m, n in e.launches}}
+                 "launches_per_replay": {name: n for name, _, _, n
+                                         in e.launches}}
                 for key, e in self._entries.items()]
 
     def __call__(self, *args):
@@ -149,8 +155,8 @@ class CompiledStep:
         if entry.graph is None:
             return self._copy_out(self.fn(*entry.args), entry)
         entry.graph.replay()
-        for mod, n in entry.launches:
-            mod.LAUNCHES += n
+        for _, mod, attr, n in entry.launches:
+            setattr(mod, attr, getattr(mod, attr) + n)
         return self._copy_out(entry.out, entry)
 
     def _first_call(self, key, static, leaves, spec):
@@ -176,8 +182,8 @@ class CompiledStep:
 
     def _capture(self, entry: _Entry) -> None:
         """Record the step into a graph; its kernels do not run here."""
-        mods = _kernel_modules()
-        before = [m.LAUNCHES for m in mods]
+        counters = _counters()
+        before = [getattr(m, a) for _, m, a in counters]
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
@@ -187,12 +193,12 @@ class CompiledStep:
                 entry.out = self.fn(*entry.args)
             entry.pool_bytes = (torch.cuda.memory_reserved(self.device)
                                 - reserved)
-            entry.launches = [(m, m.LAUNCHES - n)
-                              for m, n in zip(mods, before)
-                              if m.LAUNCHES != n]
+            entry.launches = [(name, m, a, getattr(m, a) - n)
+                              for (name, m, a), n in zip(counters, before)
+                              if getattr(m, a) != n]
         finally:
-            for m, n in zip(mods, before):
-                m.LAUNCHES = n
+            for (_, m, a), n in zip(counters, before):
+                setattr(m, a, n)
         entry.graph = graph
         entry.capture_s = time.perf_counter() - t0
 

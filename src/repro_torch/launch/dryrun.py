@@ -33,8 +33,9 @@ What is recorded, under the reference's keys:
   * ``collectives``: every functional collective the step issues, with its
     kind, per-device operand bytes and group size, and the reference's
     ring model of effective bytes (all-reduce 2x its operand, all-gather
-    its result, the others their operand, times (g-1)/g).  Eager PyTorch
-    runs each layer's ops, so there are no loop trip counts to recover.
+    its result, the others their operand, times (g-1)/g), and the largest
+    single operand of each kind.  Eager PyTorch runs each layer's ops, so
+    there are no loop trip counts to recover.
   * ``lower_s``: building the step and placing its fake arguments;
     ``compile_s``: running it (PyTorch compiles nothing here).
 
@@ -45,6 +46,10 @@ Usage:
   python -m repro_torch.launch.dryrun --arch chatglm3-6b --shape decode_32k \\
       --mesh single --out /tmp/dry
   python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun
+  python -m repro_torch.launch.dryrun --report results/dryrun
+
+``--report`` reads the records in a directory and prints how many cells
+ran, were n/a or failed, and which ran above the card's 80 GiB per device.
 """
 
 from __future__ import annotations
@@ -227,14 +232,18 @@ def _summarize(ops):
 def _collective_totals(ops) -> dict:
     totals = {k: 0.0 for k in COLLECTIVES}
     eff: dict[str, float] = {}
+    largest: dict[str, int] = {}
     for o in ops:
         totals[o["kind"]] += o["operand_bytes"] * o["multiplier"]
         eff[o["kind"]] = eff.get(o["kind"], 0) \
             + o["effective_bytes"] * o["multiplier"]
+        largest[o["kind"]] = max(largest.get(o["kind"], 0),
+                                 o["operand_bytes"])
     return {"per_device_bytes_by_kind": totals,
             "per_device_bytes_total": sum(totals.values()),
             "effective_bytes_by_kind": eff,
             "effective_bytes_total": sum(eff.values()),
+            "largest_op_bytes_by_kind": largest,
             "num_ops": len(ops), "ops_summary": _summarize(ops)}
 
 
@@ -327,6 +336,30 @@ def run_step(cfg, kind_shape: str, specs: dict, mesh_shape, axes=None,
                                      **bundle_kw), mesh)
 
 
+def report(directory) -> dict:
+    """The records in ``directory``: cells that ran, were n/a or failed,
+    and those whose per-device peak exceeds one H100's 80 GiB."""
+    from repro_torch.core.planner import H100_SXM
+    recs = [json.loads(p.read_text())
+            for p in sorted(Path(directory).glob("*__*__*.json"))]
+    ran = [r for r in recs if r.get("ok")]
+    over = sorted(f"{r['arch']} x {r['shape']} on {r['mesh']}: "
+                  f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB"
+                  for r in ran
+                  if r["memory"]["peak_bytes"] > H100_SXM.hbm_bytes)
+    out = {"records": len(recs), "ran": len(ran),
+           "n/a": sum(bool(r.get("skipped")) for r in recs),
+           "failed": sum(not r.get("ok") and not r.get("skipped")
+                         for r in recs),
+           "above_80GiB": over}
+    print(f"[report] {out['records']} records: {out['ran']} ran, "
+          f"{out['n/a']} n/a, {out['failed']} failed; {len(over)} of the "
+          f"{out['ran']} above 80 GiB per device")
+    for line in over:
+        print(f"[report]   {line}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -336,7 +369,12 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--report", default=None, metavar="DIR",
+                    help="summarise the records in DIR and exit")
     args = ap.parse_args(argv)
+    if args.report:
+        report(args.report)
+        return
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -48,21 +48,26 @@ from repro_torch.core import decision, runtime_model
 
 
 def serve(arch: str, *, reduced: bool = True, prompts: int = 4,
-          prompt_len: int = 32, gen: int = 16, slo_us: float | None = None,
-          fused_decode: bool = False, device: str | torch.device = "cuda",
-          params=None, prompt_tokens: np.ndarray | None = None) -> dict:
+          prompt_len: int = 32, gen: int = 16, mesh_shape=(1, 1),
+          slo_us: float | None = None, fused_decode: bool = False,
+          device: str | torch.device = "cuda", params=None,
+          prompt_tokens: np.ndarray | None = None, mesh=None) -> dict:
     """One-shot serving: a single batch through the serving engine, with one
     offline offload decision for the whole job.
 
     ``prompt_tokens`` (prompts, prompt_len) int32 replaces the default
     prompt batch, drawn with ``np.random.default_rng(1)``; ``params`` a
     port parameter tree replaces the seeded random weights.
+    ``mesh_shape`` and ``mesh`` go to the ``ServingEngine``: a
+    ``DeviceMesh`` over the caller's process group, or the plain
+    one-device path for ``(1, 1)`` without ``mesh``.
     """
     from repro_torch.serve.batcher import ServingEngine
 
     engine = ServingEngine(arch, reduced=reduced, max_batch=prompts,
-                           max_len=prompt_len + gen, fused_decode=fused_decode,
-                           params=params, device=device)
+                           max_len=prompt_len + gen, mesh_shape=mesh_shape,
+                           fused_decode=fused_decode, params=params,
+                           device=device, mesh=mesh)
     cfg = engine.cfg
     if prompt_tokens is None:
         tokens = np.random.default_rng(1).integers(

@@ -11,10 +11,16 @@ Sharding hints go through a ``ShardCtx`` at the reference's call sites.
 one-device path runs no DTensor op.  An active context (built by
 ``runtime.sharding.make_shard_ctx`` over a ``DeviceMesh``) redistributes
 the DTensor activations to the spec's placements; DTensor's own sharding
-propagation places everything between those points.  The decode cache
-write and the attention over the cache run on each rank's batch rows of
-a slot-complete cache (``_on_batch_shards``): the fused kernel takes raw
-pointers and has no sharding rule.
+propagation places everything between those points.  A decode step and a
+prefill's cache fill run on each device's own block of the cache, its
+batch rows and its share of the slots (``cache_specs`` puts the slots on
+the model axis), as the reference's partitioner splits them
+(flash-decoding, ``_decode_on_slot_blocks``): the new token is written by the
+block that holds its slot, and the softmax's max and sum and the partial
+p@V are all-reduced over the model axis.  No device gathers the cache.
+Where the model axis does not divide the KV heads but divides the q
+heads, the KV heads are repeated to the q heads (``repeat_kv``) and the
+attention splits over q heads, as the reference's layout does.
 
 Where the reference asks for ``preferred_element_type=float32`` the port
 upcasts both operands to f32 before the product, which computes the same
@@ -36,8 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import (NEG_INF,
+                                                  decode_attention_shard,
                                                   fused_decode_attention,
-                                                  quantize_kv, write_slots)
+                                                  live_slots, quantize_kv,
+                                                  shard_softmax_pv,
+                                                  write_slots)
 from repro_torch.runtime.flags import baseline_mode
 
 from .config import ModelConfig
@@ -157,49 +166,62 @@ def _on_local_blocks(ctx: ShardCtx, fn, args, placements=None):
     return placed[0] if single else placed
 
 
-def _on_batch_shards(ctx: ShardCtx, cache: dict, fn, *args):
-    """``fn(cache, *args)`` on each rank's batch rows of a whole cache;
-    ``fn(cache, *args)`` itself when ``ctx`` is inactive.
+class _SlotBlocks:
+    """This device's block of a cache whose batch rows lie over the data
+    axes and whose slots lie over the model axis (``cache_specs``): the
+    local leaves, their global slot range, the rows of an activation that
+    go with them, and the model axis's all-reduces.  Every device holds
+    the same number of slots (DTensor's ``Shard`` cut: blocks of
+    ``ceil(slots / |model|)``, the last ones shorter or empty)."""
 
-    ``cache``'s leaves are DTensors with slots over the model axis; each
-    rank gathers its batch rows' slots, runs ``fn`` on plain local tensors
-    (the args cut to the same rows), and writes the cache back to its own
-    shard in place.  ``fn`` returns a (B_local, ...) tensor, returned as a
-    DTensor with the batch over the cache's data axes, or None.
-    """
-    if not ctx.active:
-        return fn(cache, *args)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    def __init__(self, ctx: ShardCtx, cache: dict):
+        self.ctx = ctx
+        self.names = [n for n in ("k", "v", "k_scale", "v_scale")
+                      if n in cache]
+        first = cache["k"]
+        self.rows_placements = tuple(
+            p if p.is_shard(0) else _replicate() for p in first.placements)
+        self.batch = first.shape[0]
+        self.slots = first.shape[1]
+        self.local = {n: cache[n].to_local() for n in self.names}
+        n = ctx.tp_size()
+        chunk = -(-self.slots // n)
+        coord = ctx.mesh.get_local_rank(ctx.tp) if n > 1 else 0
+        self.base = min(coord * chunk, self.slots)
+        self.group = ctx.mesh.get_group(ctx.tp).group_name if n > 1 else None
 
-    mesh = ctx.mesh
-    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
-    first = cache[names[0]]
-    # Keep the batch rows' placement; gather everything else.
-    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                 for p in first.placements)
-    whole = {n: cache[n].redistribute(mesh, rows) for n in names}
-    local_cache = dict(cache, **{n: w.to_local() for n, w in whole.items()})
+    def rows(self, x):
+        """This device's batch rows of ``x`` (B, ...), all of every other
+        dim (a plain tensor is taken as replicated)."""
+        return self.ctx.constrain(x, self.ctx.dp,
+                                  *(None,) * (x.ndim - 1)).to_local()
 
-    def local(x):
-        if not isinstance(x, DTensor):
-            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return x.redistribute(mesh, rows).to_local()
+    def all_reduce(self, op: str):
+        """``op`` ("max" or "sum") over the model axis, a functional
+        collective; None (the identity) on a model axis of one device."""
+        if self.group is None:
+            return None
+        group = self.group
 
-    out = fn(local_cache, *(local(a) for a in args))
-    for n in names:
-        mine, wrote = cache[n].to_local(), local_cache[n]
-        # (Storage identity, not data pointers: the dry run's fake tensors
-        # have none.)
-        if mine.untyped_storage()._cdata != wrote.untyped_storage()._cdata:
-            mine.copy_(whole[n].redistribute(mesh, cache[n].placements)
-                       .to_local())
-    if out is None:
-        return None
-    shape = (first.shape[0], *out.shape[1:])
-    return DTensor.from_local(out, mesh, rows, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+        def reduce(t):
+            c10d = torch.ops._c10d_functional
+            return c10d.wait_tensor(c10d.all_reduce(t.contiguous(), op,
+                                                    group))
+        return reduce
+
+    def placed(self, out):
+        """A (B_local, ...) result as a DTensor over all B rows."""
+        from torch.distributed.tensor import DTensor
+        shape = (self.batch, *out.shape[1:])
+        return DTensor.from_local(out, self.ctx.mesh, self.rows_placements,
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+    return Replicate()
 
 
 # --------------------------------------------------------------------------- #
@@ -350,23 +372,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     positions including the new one, a scalar or a per-slot (B,) vector.
     """
     b, sq, h, d = q.shape
-    skv, kh = k_cache.shape[1], k_cache.shape[2]
-    g = h // kh
-    qg = q.reshape(b, sq, kh, g, d)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                     k_cache.float()) / math.sqrt(d)
-    pos = torch.arange(skv, device=q.device)
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     if lens.ndim == 0:
         lens = lens.expand(b)
-    mask = pos[None, :] < lens[:, None]                     # (B, S)
-    if window:
-        mask &= pos[None, :] > lens[:, None] - 1 - window
-    s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_masked_scores(q, k_cache, lens, window=window), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _masked_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                   lens: torch.Tensor, *, window: int,
+                   slot_base: int = 0) -> torch.Tensor:
+    """The f32 scores (B, K, G, Sq, S) of q (B, Sq, H, D) over a cache
+    block (B, S, K, D) holding global slots ``slot_base ...``, masked to
+    the live slots (``live_slots``; ``lens`` (B,) counts the new token)."""
+    b, sq, h, d = q.shape
+    kh = k_cache.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                     k_cache.float()) / math.sqrt(d)
+    mask = live_slots(lens, k_cache.shape[1], slot_base=slot_base,
+                      window=window)
+    return torch.where(mask[:, None, None, None, :], s, NEG_INF)
 
 
 # --------------------------------------------------------------------------- #
@@ -396,20 +424,25 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     hd = cfg.qk_head_dim
     # The KV heads are replicated when the model axis does not divide them
     # (``sharding._rule``), and DTensor can neither regroup model-sharded q
-    # heads into (K, G) nor split a model-sharded K*D into K heads: then
-    # q, k and v (and, in the backward pass, the output's gradient) are
-    # gathered over the model axis, whose devices all run the attention.
-    # (Splitting the query positions instead makes DTensor's propagation
-    # read data under fake tensors.)
-    gather_heads = cfg.num_kv_heads % ctx.tp_size() != 0
+    # heads into (K, G) nor split a model-sharded K*D into K heads.  Where
+    # the model axis divides the q heads, k and v are then repeated to the
+    # q heads (``repeat_kv``, as the reference's layout keeps the head dim
+    # shardable) and the attention splits over q heads, one KV head each;
+    # otherwise q, k and v (and, in the backward pass, the output's
+    # gradient) are gathered over the model axis, whose devices all run
+    # the attention.  (Splitting the query positions instead makes
+    # DTensor's propagation read data under fake tensors.)
+    tp = ctx.tp_size()
+    split_kv = cfg.num_kv_heads % tp == 0
+    repeat = not split_kv and cfg.num_heads % tp == 0
+    gather_heads = not split_kv and not repeat
 
     def kv(w):
         y = x @ w
-        if gather_heads:
+        if not split_kv:
             y = ctx.constrain(y, ctx.dp, None, None)
         y = y.reshape(b, s, cfg.num_kv_heads, hd)
-        return ctx.constrain(y, ctx.dp, None, None, None) if gather_heads \
-            else y
+        return y if split_kv else ctx.constrain(y, ctx.dp, None, None, None)
 
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
     k, v = kv(p["wk"]), kv(p["wv"])
@@ -425,8 +458,11 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     quant = "k_scale" in (cache or {})
 
     def attend(q, k, v):
-        # On a mesh each device attends its batch rows and KV-head group
-        # (all heads when the model axis does not divide the KV heads).
+        # On a mesh each device attends its batch rows and its heads: its
+        # KV-head groups, its q heads over repeated KV heads, or all heads.
+        if repeat:
+            k, v = (_on_local_blocks(ctx, functools.partial(
+                repeat_kv, num_heads=cfg.num_heads), (t,)) for t in (k, v))
         heads = None if gather_heads else ctx.tp
         q, k, v = (ctx.constrain(t, ctx.dp, None, heads, None)
                    for t in (q, k, v))
@@ -447,18 +483,20 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
                 raise ValueError("prefill length must be a multiple of the "
                                  "ring-buffer window")
             kk, vv = k[:, s - slots:], v[:, s - slots:]
-        n = kk.shape[1]
-
-        def fill(c, kk, vv):
-            for name, val in (("k", kk), ("v", vv)):
-                if quant:
-                    qv, sc = quantize_kv(val)
-                    c[name][:, :n] = qv
-                    c[f"{name}_scale"][:, :n] = sc
-                else:
-                    c[name][:, :n] = val.to(c[name].dtype)
-
-        _on_batch_shards(ctx, cache, fill, kk, vv)
+        c, lo, n = cache, 0, kk.shape[1]
+        if ctx.active:
+            # Each device writes the positions inside its own slots.
+            blocks = _SlotBlocks(ctx, cache)
+            c, lo = blocks.local, blocks.base
+            n = max(0, min(n - lo, c["k"].shape[1]))
+            kk, vv = (blocks.rows(t)[:, lo:lo + n] for t in (kk, vv))
+        for name, val in (("k", kk), ("v", vv)):
+            if quant:
+                qv, sc = quantize_kv(val)
+                c[name][:, :n] = qv
+                c[f"{name}_scale"][:, :n] = sc
+            else:
+                c[name][:, :n] = val.to(c[name].dtype)
         out = attend(q, k, v)
         new_cache = dict(cache, len=cache["len"] + s)
     else:
@@ -467,41 +505,30 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         idx = torch.as_tensor(cache["len"], dtype=torch.int32, device=x.device)
         if idx.ndim == 0:
             idx = idx.expand(b)
-        slots = cache["k"].shape[1]
         # Local layers keep a ring buffer of exactly `window` slots: every
         # resident slot is in-window by construction, so no window mask.
-        is_ring = bool(window) and slots <= window
-
-        def step(c, q, k, v, idx, positions):
-            if use_fused:
-                cos, sin = rope_cos_sin(positions, hd, cfg)
-                return fused_decode_attention(
-                    q, k, v, c["k"], c["v"], idx, cos, sin,
-                    c.get("k_scale"), c.get("v_scale"),
-                    window=0 if is_ring else window, is_ring=is_ring)[0]
-            write = (idx % slots if is_ring else idx).long()
-            rows = torch.arange(q.shape[0], device=q.device)
-            for name, val in (("k", k), ("v", v)):
-                if quant:
-                    qv, sc = quantize_kv(val)
-                    write_slots(c[name], rows, write, qv[:, 0])
-                    write_slots(c[f"{name}_scale"], rows, write, sc[:, 0])
-                else:
-                    write_slots(c[name], rows, write, val[:, 0])
-
-            def load(name):
-                if quant:
-                    return dequantize_kv(c[name], c[f"{name}_scale"],
-                                         x.dtype)
-                return c[name]
-            return decode_attention(q, load("k"), load("v"), idx + 1,
-                                    window=0 if is_ring else window)
-
+        is_ring = bool(window) and cache["k"].shape[1] <= window
+        win = 0 if is_ring else window
         # Flash-decoding layout (the reference's non-baseline path): the
         # one query token is replicated over the model axis.
         if ctx.active and not baseline_mode():
             q = ctx.constrain(q, ctx.dp, None, None, None)
-        out = _on_batch_shards(ctx, cache, step, q, k, v, idx, positions)
+        if ctx.active:
+            out = _decode_on_slot_blocks(ctx, cache, q, k, v, idx,
+                                         positions, cfg, fused=use_fused,
+                                         window=win, is_ring=is_ring)
+        elif use_fused:
+            cos, sin = rope_cos_sin(positions, hd, cfg)
+            out = fused_decode_attention(
+                q, k, v, cache["k"], cache["v"], idx, cos, sin,
+                cache.get("k_scale"), cache.get("v_scale"), window=win,
+                is_ring=is_ring)[0]
+        else:
+            slots = cache["k"].shape[1]
+            k_use, v_use = _write_new_token(
+                cache, k, v, (idx % slots if is_ring else idx).long(),
+                x.dtype)
+            out = decode_attention(q, k_use, v_use, idx + 1, window=win)
         if ctx.active and not baseline_mode():
             out = ctx.constrain(out, ctx.dp, None, None, None)
         new_cache = dict(cache, len=idx + 1)
@@ -510,6 +537,55 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         out = ctx.constrain(out, ctx.dp, None, None, None)
     out = out.reshape(b, s, cfg.num_heads * hd)
     return ctx.constrain(out @ p["wo"], ctx.dp, None, None), new_cache
+
+
+def _write_new_token(c: dict, k, v, write, dtype):
+    """Scatter the new token's k, v (B, 1, K, D) into the caches ``c`` at
+    the rows' slots ``write`` (quantised for int8 caches; a slot outside
+    the caches is dropped); returns the caches as keys and values in
+    ``dtype``."""
+    rows = torch.arange(k.shape[0], device=k.device)
+    quant = "k_scale" in c
+    for name, val in (("k", k), ("v", v)):
+        if quant:
+            qv, sc = quantize_kv(val)
+            write_slots(c[name], rows, write, qv[:, 0])
+            write_slots(c[f"{name}_scale"], rows, write, sc[:, 0])
+        else:
+            write_slots(c[name], rows, write, val[:, 0])
+    if quant:
+        return tuple(dequantize_kv(c[n], c[f"{n}_scale"], dtype)
+                     for n in ("k", "v"))
+    return c["k"], c["v"]
+
+
+def _decode_on_slot_blocks(ctx: ShardCtx, cache: dict, q, k, v, idx,
+                           positions, cfg: ModelConfig, *, fused: bool,
+                           window: int, is_ring: bool):
+    """A decode step's attention on this device's block of the cache (its
+    rows, its slots): the new token written by the block holding its slot,
+    the softmax's max and sum and the partial p@V all-reduced over the
+    model axis, one cast.  ``fused`` runs the decode kernel's slot-shard
+    form (q, k un-roped), else the same decomposition in plain ops.
+    Returns the (B, 1, H, D) output over every row."""
+    blocks = _SlotBlocks(ctx, cache)
+    c, base, slots = blocks.local, blocks.base, blocks.slots
+    q, k, v, idx = (blocks.rows(t) for t in (q, k, v, idx))
+    all_max, all_sum = blocks.all_reduce("max"), blocks.all_reduce("sum")
+    if fused:
+        cos, sin = rope_cos_sin(blocks.rows(positions), cfg.qk_head_dim, cfg)
+        out = decode_attention_shard(
+            q, k, v, c["k"], c["v"], idx, cos, sin, c.get("k_scale"),
+            c.get("v_scale"), slot_base=base, slots=slots, window=window,
+            is_ring=is_ring, all_max=all_max, all_sum=all_sum)[0]
+        return blocks.placed(out)
+    write = (idx % slots if is_ring else idx).long() - base
+    k_use, v_use = _write_new_token(c, k, v, write, q.dtype)
+    # ``decode_attention``'s scores and masks on this block's slots.
+    sc = _masked_scores(q, k_use, idx + 1, window=window,
+                        slot_base=base)[:, :, :, 0]
+    return blocks.placed(shard_softmax_pv(sc, v_use, q.dtype, all_max,
+                                          all_sum))
 
 
 # --------------------------------------------------------------------------- #

@@ -45,9 +45,13 @@ eagerly on their static buffers.
 
 Every step of one engine is queued on one CUDA stream, so the pipelined
 loop's refill prefill, queued behind the decode it overlaps, runs after
-that decode on the card, and the decode's credit read (a copy queued after
-both) waits for the prefill too.  The loop's tokens are those of the
-sequential loops all the same.  Queueing a step never syncs the host:
+that decode on the card.  Right after a step is queued, its credits and
+next tokens are copied into the step's own pinned host buffers
+(``non_blocking``) and its ``done`` event is recorded behind those copies;
+the host's wait is on that event, so it waits for its own step alone, as
+the reference's reads of its own buffers do, and not for a prefill queued
+after it.  The loop's tokens are those of the sequential loops all the
+same.  Queueing a step never syncs the host:
 every input crosses in one pinned ``non_blocking`` copy on the
 dispatcher's copy stream, the prompt tokens' timed placement waits for
 that copy alone, the copy into a graph's input buffers is queued on the
@@ -105,12 +109,16 @@ class PendingStep:
     step's first call and under ``disable_compile()``, every op queued
     from Python, which takes as long as or longer than the card's work.
     The credit wait alone would miss that part of the step.
+
+    ``host`` holds, on the card, the step's own pinned host copies of its
+    credits and next tokens, which ``done`` follows on the stream.
     """
 
     out: dict
     dispatch_s: float = 0.0        # measured operand-placement seconds
     launch_s: float = 0.0          # measured kernel-queueing seconds
     done: torch.cuda.Event | None = None
+    host: dict | None = None
 
 
 class ServingEngine:
@@ -198,12 +206,19 @@ class ServingEngine:
         t0 = time.perf_counter()
         out = step(*args)
         out["caches"] = self._caches      # the engine's own, as passed
-        done = None
+        done = host = None
         if self.device.type == "cuda":
+            host = {name: _pinned_copy(t) for name, t in (
+                ("credits", out["credits"]),
+                ("next_token", self._whole(out["next_token"])))}
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
         return PendingStep(out=out, dispatch_s=dispatch_s,
-                           launch_s=time.perf_counter() - t0, done=done)
+                           launch_s=time.perf_counter() - t0, done=done,
+                           host=host)
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        return t.full_tensor() if self.mesh is not None else t
 
     def init_caches(self):
         """The engine's decode caches, zeroed, for the slot-managed loop."""
@@ -303,16 +318,28 @@ class ServingEngine:
 
         ``wall_s`` is the dispatch seconds (when the step placed operands),
         the kernel-queueing seconds and the residual blocking wait on the
-        credit scalar.
+        credit scalar.  On the card that wait is on the step's own event,
+        behind its host copies; on the CPU the outputs are read as they are.
         """
-        got, wait_s = self.sync.timed_wait(pending.out["credits"])
+        if pending.host is None:
+            got, wait_s = self.sync.timed_wait(pending.out["credits"])
+            next_token = self._whole(pending.out["next_token"]).cpu()
+        else:
+            got, wait_s = self.sync.timed_wait(pending.host["credits"],
+                                               ready=pending.done)
+            next_token = pending.host["next_token"]
         self.last_credits = got
-        next_token = pending.out["next_token"]
-        if self.mesh is not None:
-            next_token = next_token.full_tensor()
-        return (next_token.cpu().numpy(),
+        return (next_token.numpy(),
                 pending.out["caches"],
                 pending.dispatch_s + pending.launch_s + wait_s)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a new pinned host tensor, queued on the current
+    stream without a host sync."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)
+
 
 @dataclasses.dataclass
 class _InflightPrefill:

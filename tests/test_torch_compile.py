@@ -16,8 +16,9 @@ card's replays are held in ``tests/test_torch_kernels_cuda.py``.
   * the reference's public names the port lacked (``DISPATCHERS``,
     ``replicated_sharding``, ``batch_sharding``, ``SYNCS``,
     ``attach_credits``, ``repeat_kv``) behave as the reference's, and an
-    AST diff of the two packages finds no other missing name but the
-    deliberate differences.
+    AST diff of the two packages finds no other missing name, and
+    ``inspect.signature`` no other missing parameter, but the deliberate
+    differences.
 """
 
 from __future__ import annotations
@@ -355,9 +356,81 @@ def _public_names(path: Path, with_imports: bool) -> set[str]:
     return {n for n in names if not n.startswith("_")}
 
 
+#: Parameters of the reference's public functions and methods that the
+#: port's counterparts do not take, on purpose (ROADMAP A, the list of
+#: deliberate differences; ROADMAP C16): the dispatchers place on a device,
+#: not by shardings; XLA's scan and layout options (``unroll_groups``,
+#: ``batch_abstract``, ``specs``) and ``StepBundle``'s ``out_shardings``
+#: and ``donate_argnums``; the Pallas kernels' ``interpret``, ``chunk`` and
+#: ``block_rows``, and AdamW's ``use_pallas`` (``use_kernel=``); a torch
+#: ``Generator`` seed for JAX's PRNG ``key``; ``train.build``'s batch
+#: shape and mesh, which the compiled step takes from its first call;
+#: ``embed_tokens`` reads the config from the params it is given.
+DELIBERATE_PARAMS = {
+    "core/dispatch.py": {
+        "MulticastDispatcher.put": {"shardings"},
+        "MulticastDispatcher.timed_put": {"shardings"},
+        "SequentialDispatcher.put": {"shardings"},
+        "SequentialDispatcher.put_with_calls": {"shardings"},
+        "SequentialDispatcher.timed_put": {"shardings"}},
+    "kernels/decode_attention.py": {
+        "fused_decode_attention": {"chunk", "interpret"}},
+    "kernels/ops.py": {"daxpy": {"block_rows", "interpret"},
+                       "adamw_update": {"block_rows", "interpret"}},
+    "launch/dryrun.py": {"run_cell": {"unroll_groups"}},
+    "launch/steps.py": {
+        "make_train_step": {"batch_abstract", "unroll_groups"},
+        "make_prefill_step": {"batch_abstract", "unroll_groups"},
+        "make_slot_prefill_step": {"batch_abstract"},
+        "make_decode_step": {"specs", "unroll_groups"},
+        "bundle_for": {"unroll_groups"},
+        "StepBundle": {"out_shardings", "donate_argnums"}},
+    "launch/train.py": {"build": {"batch", "seq", "mesh_shape"}},
+    "models/model.py": {"init_params": {"key"}, "embed_tokens": {"cfg"},
+                        "forward": {"unroll_groups"}},
+    "optim/adamw.py": {"adamw_update": {"use_pallas", "interpret"}},
+}
+
+
+def _callables(path: Path) -> list[str]:
+    """Public functions and classes a module defines, and the public
+    methods (and ``__init__``) of those classes, as dotted names."""
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, (*funcs, ast.ClassDef)) or \
+                node.name.startswith("_"):
+            continue
+        names.append(node.name)
+        if isinstance(node, ast.ClassDef):
+            names += [f"{node.name}.{m.name}" for m in node.body
+                      if isinstance(m, funcs) and not m.name.startswith("_")]
+    return names
+
+
+def _parameters(module, dotted: str) -> set[str] | None:
+    """Parameter names of ``module.dotted`` (None where the port has no
+    such callable: the name check covers that)."""
+    import inspect
+    obj = module
+    for part in dotted.split("."):
+        obj = getattr(obj, part, None)
+        if obj is None:
+            return None
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return {n for n in sig.parameters if n not in ("self", "cls")}
+
+
 def test_ast_diff_finds_no_missing_public_name():
+    """No public name of the reference is missing from the port, and no
+    parameter of a public function, class or method is, but the
+    deliberate differences (``DELIBERATE``, ``DELIBERATE_PARAMS``)."""
+    import importlib
     ref_root, port_root = REPO / "src" / "repro", REPO / "src" / "repro_torch"
-    missing = {}
+    missing, lost_params = {}, {}
     for ref in sorted(ref_root.rglob("*.py")):
         rel = ref.relative_to(ref_root).as_posix()
         port = port_root / rel
@@ -367,4 +440,25 @@ def test_ast_diff_finds_no_missing_public_name():
                 - DELIBERATE.get(rel, set()))
         if lost:
             missing[rel] = sorted(lost)
+        mod = rel[:-3].replace("/", ".").removesuffix(".__init__")
+        ref_mod = importlib.import_module(f"repro.{mod}".rstrip("."))
+        port_mod = importlib.import_module(f"repro_torch.{mod}".rstrip("."))
+        for name in _callables(ref):
+            want = _parameters(ref_mod, name)
+            got = _parameters(port_mod, name)
+            if want is None or got is None:
+                continue
+            gone = want - got - DELIBERATE_PARAMS.get(rel, {}).get(name,
+                                                                   set())
+            if gone:
+                lost_params[f"{rel}:{name}"] = sorted(gone)
     assert missing == {}
+    assert lost_params == {}
+    # The allowed lists hold differences that exist, nothing more.
+    for rel, entries in DELIBERATE_PARAMS.items():
+        mod = rel[:-3].replace("/", ".")
+        ref_mod = importlib.import_module(f"repro.{mod}")
+        port_mod = importlib.import_module(f"repro_torch.{mod}")
+        for name, params in entries.items():
+            assert params <= _parameters(ref_mod, name) - \
+                _parameters(port_mod, name), (rel, name)

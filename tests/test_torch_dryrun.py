@@ -10,9 +10,10 @@ memory, FLOPs and collectives.  The counterparts of
   * a production cell through the CLI (chatglm3-6b x decode_32k on the
     16x16 mesh) writes a record with the reference's keys, whose argument
     bytes are exactly the local shards its specs give each device, whose
-    FLOPs are ``cell_cost``'s plus the attention that every model-axis
-    device repeats (within the reference's own 20 %), and whose
-    collectives ``CommDebugMode`` counts the same;
+    FLOPs are ``cell_cost``'s (within the reference's own 20 %), whose
+    collectives ``CommDebugMode`` counts the same, and whose decode moves
+    no cache-sized collective: three all-reduces per attention layer over
+    the model axis, of (B_local, H) and (B_local, H, D) elements;
   * an inapplicable cell is written as the reference writes it, and a cell
     that fails is written ``ok: false`` with its error and traceback;
   * the census's totals follow the reference's ring model of effective
@@ -62,7 +63,12 @@ CELLS = {
     "decode_1layer": ("granite-3-8b", "decode_32k", (2, 4),
                       {"kv_quant": True, "num_heads": 4, "num_kv_heads": 2,
                        "num_layers": 1}),
+    # The decode cell with a cache of 256 slots, not 64 (SLOTS).
+    "decode_256": ("granite-3-8b", "decode_32k", (2, 4),
+                   {"kv_quant": True, "num_heads": 4, "num_kv_heads": 2}),
 }
+# Cache slots of a decode cell (64 but where given).
+SLOTS = {"decode_256": 256}
 
 
 def _cell_cfg(name):
@@ -77,7 +83,8 @@ def _port_record(name):
         specs = {"tokens": _meta((8, 32))}
     else:
         specs = {"tokens": _meta((4, 1)),
-                 "caches": init_cache(cfg, 4, max_len=64, device="meta"),
+                 "caches": init_cache(cfg, 4, max_len=SLOTS.get(name, 64),
+                                      device="meta"),
                  "cache_len": _meta(())}
     return dryrun.run_step(cfg, shape, specs, mesh)
 
@@ -97,6 +104,7 @@ from repro.launch.steps import bundle_for
 from repro.models import init_cache, scaled_down
 
 CELLS = %r
+SLOTS = %r
 out = {}
 for name, (arch, shape, mesh_shape, changes) in CELLS.items():
     cfg = dataclasses.replace(scaled_down(get_config(arch)), **changes)
@@ -105,7 +113,8 @@ for name, (arch, shape, mesh_shape, changes) in CELLS.items():
     else:
         specs = {"tokens": jax.ShapeDtypeStruct((4, 1), jnp.int32),
                  "caches": jax.eval_shape(
-                     lambda: init_cache(cfg, 4, max_len=64)),
+                     lambda: init_cache(cfg, 4,
+                                        max_len=SLOTS.get(name, 64))),
                  "cache_len": jax.ShapeDtypeStruct((), jnp.int32)}
     mesh = make_mesh(mesh_shape, ("data", "model"))
     # As the reference's dry run compiles it, and unrolled for its FLOPs.
@@ -130,7 +139,7 @@ print(json.dumps(out))
 @pytest.fixture(scope="module")
 def ref_records():
     from conftest import run_py
-    r = run_py(REF_CELLS % (CELLS,), devices=8)
+    r = run_py(REF_CELLS % (CELLS, SLOTS), devices=8)
     assert r.returncode == 0, r.stderr[-3000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
 
@@ -150,39 +159,67 @@ def test_argument_bytes_equal_the_reference(name, port_records,
 # backend's own peak field counts the arguments alone) of the build its
 # dry run compiles.  Both hold the same arguments; the temporaries differ
 # by what XLA fuses away (fewer: elementwise chains live in registers) and
-# what its buffer assignment keeps (more: the layer scan's stacked
-# residuals).  25 % either way holds both effects (measured 1.10).
+# what its buffer assignment and schedule keep (more: the layer scan's
+# stacked residuals, weight all-gathers issued ahead of their use).  25 %
+# either way holds both effects (train measured 1.10).
+#
+# The decode cells' reference peak leaves out what XLA's schedule adds to
+# its live set and the port's does not: the reference issues the data-axis
+# all-gathers of the MLP's three weights (w_gate, w_in, w_out, each a
+# (d_model, d_ff / model) shard) before their dots and keeps a transposed
+# copy of w_out, four such buffers live at once, where the port holds one
+# (its compiled HLO, ``Compiled.as_text()``: all-gather.61-63 and copy.12
+# ahead of dot.53).  The decode cell is held at 64 and 256 slots against
+# the reference less three of those buffers, and by the growth of the
+# peak from 64 to 256 slots, which a device that gathers the cache
+# multiplies by the model axis (4 here).  Measured, port over that
+# bound: 0.90 at 64 slots, 0.96 at 256 (over the reference itself 0.73
+# and 0.83); growth 1.09.
 PEAK_RATIO = 0.25
+
+
+def _held_weight_gathers(name) -> int:
+    """Bytes of the MLP weight gathers the reference keeps live beyond the
+    port's one: three (d_model, d_ff / model) shards."""
+    cfg = _cell_cfg(name)
+    model = CELLS[name][2][1]
+    size = torch.empty(0, dtype=getattr(torch, cfg.dtype)).element_size()
+    return 3 * cfg.d_model * (cfg.d_ff // model) * size
+
+
+def _ref_peak(rec) -> int:
+    return (rec["argument_bytes"] + rec["output_bytes"] + rec["temp_bytes"]
+            - rec["alias_bytes"])
 
 
 @pytest.mark.parametrize("name", ["train", "decode"])
 def test_peak_bytes_within_the_reference(name, port_records, ref_records):
-    ref = ref_records[name]
-    want = (ref["argument_bytes"] + ref["output_bytes"] + ref["temp_bytes"]
-            - ref["alias_bytes"])
-    got = port_records[name]["memory"]["peak_bytes"]
-    assert abs(got / want - 1) <= PEAK_RATIO, (got, want)
+    def peak(n):
+        return port_records[n]["memory"]["peak_bytes"], \
+            _ref_peak(ref_records[n])
+
+    if name == "train":
+        pairs = [peak("train")]
+    else:
+        (p64, r64), (p256, r256) = peak("decode"), peak("decode_256")
+        pairs = [(p64, r64 - _held_weight_gathers("decode")),
+                 (p256, r256 - _held_weight_gathers("decode_256")),
+                 (p256 - p64, r256 - r64)]
+    for got, want in pairs:
+        assert abs(got / want - 1) <= PEAK_RATIO, (got, want)
 
 
 # The port counts matmul-class ops (``FlopCounterMode``'s formulas), XLA
 # also counts elementwise ops; the reference's own test holds XLA's count
-# to the matmul count within 20 % (tests/test_analytics.py).  The decode
-# cell's fused kernel needs slot-complete rows, so each of the model
-# axis's devices attends over all 64 slots where XLA splits the slots
-# over the model axis: the port does (|model| - 1) / |model| of its
-# attention FLOPs more, which is taken off before comparing.
+# to the matmul count within 20 % (tests/test_analytics.py).  Both split
+# the decode cell's attention over the slots on the model axis, so the
+# counts are compared as they are.
 FLOPS_RTOL = 0.20
 
 
 @pytest.mark.parametrize("name", ["train", "decode_1layer"])
 def test_flops_match_the_reference(name, port_records, ref_records):
     got = port_records[name]["cost_analysis"]["flops_per_device"]
-    if name.startswith("decode"):
-        cfg = _cell_cfg(name)
-        (data, model), rows = CELLS[name][2], 4
-        attention = (2 * 2 * (rows // data) * cfg.num_heads * 64
-                     * cfg.head_dim * cfg.num_layers)
-        got -= attention * (model - 1) // model
     want = ref_records[name + "_unrolled"]["flops"]
     assert got == pytest.approx(want, rel=FLOPS_RTOL)
 
@@ -232,8 +269,7 @@ def test_cli_production_cell_and_inapplicable_cell(tmp_path):
     from repro_torch.configs.shapes import config_for_shape
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models import init_params
-    from repro_torch.configs.shapes import SHAPES
-    from repro_torch.runtime.analytics import cell_cost, forward_flops
+    from repro_torch.runtime.analytics import cell_cost
     from repro_torch.runtime.sharding import (batch_specs, cache_specs,
                                               param_specs)
     dryrun.main(["--arch", "chatglm3-6b", "--shape", "decode_32k",
@@ -259,14 +295,10 @@ def test_cli_production_cell_and_inapplicable_cell(tmp_path):
                            batch_specs(specs["tokens"], mesh), shape, axes)
             + 4)   # cache_len
     assert rec["memory"]["argument_bytes"] == want
-    # Each of the 16 model-axis devices attends its rows over every head
-    # and all slots (the fused kernel needs slot-complete rows), so the
-    # attention is done 16 times; the rest is split.  Within the 20 % the
-    # reference holds its own FLOP count to (tests/test_analytics.py).
-    b, s = SHAPES["decode_32k"]["batch"], SHAPES["decode_32k"]["seq"]
-    attention = (forward_flops(cfg, b, 1, decode=True, cache_len=s)
-                 - forward_flops(cfg, b, 1, decode=True, cache_len=0))
-    want = cell_cost(cfg, "decode_32k").flops + 15 * attention
+    # Each model-axis device attends its rows over its own slots, so the
+    # job's FLOPs are the cell's own, within the 20 % the reference holds
+    # its own FLOP count to (tests/test_analytics.py).
+    want = cell_cost(cfg, "decode_32k").flops
     assert rec["cost_analysis"]["flops"] == pytest.approx(want, rel=0.20)
     colls = rec["collectives"]
     counts = {}
@@ -277,6 +309,16 @@ def test_cli_production_cell_and_inapplicable_cell(tmp_path):
     assert counts.get("all-gather", 0) == \
         debug.get("all_gather_into_tensor", 0)
     assert counts.get("all-reduce", 0) == debug.get("all_reduce", 0)
+    # Flash-decoding: no device gathers the cache.  Every all-gather moves
+    # less than one layer's local block of the k cache (B/16 rows, S/16
+    # slots), and the attention all-reduces three tensors per layer.
+    rows, slots = specs["caches"]["groups"][0]["k"].shape[1:3]
+    block = (rows // 16) * (slots // 16) * cfg.num_kv_heads * \
+        cfg.qk_head_dim * 2
+    assert 0 < colls["largest_op_bytes_by_kind"]["all-gather"] < block
+    assert counts["all-reduce"] >= 3 * cfg.num_layers
+    assert dryrun.report(tmp_path) == {"records": 3, "ran": 1, "n/a": 2,
+                                       "failed": 0, "above_80GiB": []}
 
     for mesh_name in ("single", "multi"):
         na = json.loads((tmp_path / f"chatglm3-6b__long_500k__{mesh_name}"

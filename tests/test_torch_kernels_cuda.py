@@ -11,6 +11,12 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
     take the kernels' scalar-load build (rows that are no multiple of 16
     bytes, caches off a 16-byte boundary), and qwen3-moe's and zamba2's
     streaming shapes: caches bit-exact, out within chip_smoke.py's ``TOL``;
+  * the decode kernels' slot-shard form over P = 1, 2, 4 and 16 blocks of
+    one cache (chip_smoke.py's ``SHARD_CASES``: the streaming shape with
+    the new token on a block's edges, int8 and a ring, decode_32k's
+    per-device shape) and over an empty last block: caches bit-exact
+    against the plain version, out within ``TOL``, one block bit-equal to
+    the whole-cache call;
   * the serving engine queues a prefill-into-slots step and decode steps
     with no host sync (``torch.cuda.set_sync_debug_mode("error")``): graph
     replays, each adding its captured decode-kernel launches;
@@ -91,6 +97,25 @@ def test_decode_attention_kernels_match_plain_version(card, case, offset):
     before = DA.LAUNCHES
     SMOKE.check_case(case, 0, card, offset)
     assert DA.LAUNCHES == before + 1      # one count per call, two launches
+
+
+SHARD_PARAMS = [(c, p) for c in SMOKE.SHARD_CASES for p in SMOKE.SHARD_COUNTS]
+SHARD_PARAMS += [(("shard-empty-block", "granite-3-8b", 2, 6, 4, 2, 8, "f32",
+                   [5, 2], False, False, 0), 4),
+                 (("shard-ragged-q8", "chatglm3-6b", 3, 37, 8, 2, 16, "bf16",
+                   [36, 12, 25], True, False, 0), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,shards", SHARD_PARAMS,
+                         ids=[f"{c[0]}-P{p}" for c, p in SHARD_PARAMS])
+def test_decode_attention_shard_form_matches_plain_version(card, case,
+                                                           shards):
+    before = DA.SHARD_LAUNCHES
+    SMOKE.check_shard_case(case, shards, card)
+    # One count per block whose kernels launched; an empty block, none.
+    assert DA.SHARD_LAUNCHES == before + sum(
+        1 for _, size in DA.slot_blocks(case[3], shards) if size)
 
 
 @pytest.mark.cuda

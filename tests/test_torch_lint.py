@@ -7,7 +7,8 @@ selects (``ruff.toml``: ``F``), by an AST scan that needs no linter:
   * F841: no local variable assigned and never read (names starting with
     ``_`` excepted, as ruff's dummy-variable pattern does).
 
-It covers ``src/repro_torch``, ``chip_smoke.py`` and ``tests/test_torch_*.py``.
+It covers ``src/repro_torch``, ``chip_smoke.py``, ``tools/stream_ab.py`` and
+``tests/test_torch_*.py``.
 """
 
 import ast
@@ -17,7 +18,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FILES = sorted([*(REPO / "src" / "repro_torch").rglob("*.py"),
-                REPO / "chip_smoke.py",
+                REPO / "chip_smoke.py", REPO / "tools" / "stream_ab.py",
                 *(REPO / "tests").glob("test_torch_*.py")])
 
 

@@ -22,11 +22,22 @@ credits.
     the reference's major-to-minor layout.  A fault planted in a supervised
     run on the 2x2 mesh, while rank 0 is still writing the periodic
     checkpoint, rolls every rank back to that same checkpoint.
+  * In the same spawn, a 1x4 (data, model) mesh, where the model axis
+    divides chatglm3-6b's q heads (4) but not its KV heads (2): prefill,
+    decode and the train steps equal one device within the same
+    tolerances, greedy tokens identical, and each device's attention holds
+    H/4 q heads over as many repeated KV heads.
+  * Under ``CommDebugMode``, a decode step (fused and unfused) on the 2x2
+    and the 1x4 mesh moves no cache-sized collective: its cache attention
+    issues three all-reduces per attention layer over the model axis, of
+    (B_local, H) and (B_local, H, D) elements, and otherwise gathers at
+    most the new token's k and v.
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import os
 import time
 
@@ -306,6 +317,63 @@ def _rollback_step(mesh, directory) -> int:
     return rolled
 
 
+def _decode_comms(mesh) -> dict:
+    """One unfused and one fused decode step of chatglm3-6b (reduced) on
+    ``mesh`` after a prefill: ``CommDebugMode``'s all-reduce count, and
+    each functional collective's kind and operand shape, split into those
+    issued inside the cache attention (``_decode_on_slot_blocks``) and the
+    rest of the step."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import decode_step, layers, prefill
+    from repro_torch.launch import steps
+    from repro_torch.runtime.sharding import (make_shard_ctx, param_specs,
+                                              to_shardings)
+    cfg = _cfg("chatglm3-6b")
+    params = init_params(cfg, seed=0, device="cpu")
+    params = to_shardings(params, param_specs(params, cfg, mesh), mesh)
+    ctx = make_shard_ctx(mesh)
+    caches = steps._fresh_caches(cfg, 4, 32, torch.device("cpu"), mesh)
+    _, caches = prefill(params, cfg, caches=caches, tokens=_tokens(
+        cfg, (4, 16), 1), ctx=ctx)
+    ops = {"attention": [], "other": []}
+    where = ["other"]
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func.namespace == "_c10d_functional" and func._opname not \
+                    in ("wait_tensor", "_wrap_tensor_autograd"):
+                ops[where[0]].append((func._opname, list(args[0].shape)))
+            return func(*args, **(kwargs or {}))
+
+    inner = layers._decode_on_slot_blocks
+
+    def tapped(*a, **k):
+        where[0] = "attention"
+        try:
+            return inner(*a, **k)
+        finally:
+            where[0] = "other"
+
+    layers._decode_on_slot_blocks = tapped
+    try:
+        with CommDebugMode() as comm, Spy():
+            for i, fused in enumerate((False, True)):
+                _, caches = decode_step(
+                    params, cfg, _tokens(cfg, (4, 1), 9), caches,
+                    torch.full((4,), 16 + i, dtype=torch.int32),
+                    fused=fused, ctx=ctx)
+    finally:
+        layers._decode_on_slot_blocks = inner
+    counts = {str(k).split(".")[-1]: v
+              for k, v in comm.get_comm_counts().items()}
+    return {"comm_all_reduce": counts.get("all_reduce", 0), **ops}
+
+
 def _worker(rank, world, store, out_dir):
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -317,11 +385,27 @@ def _worker(rank, world, store, out_dir):
         from repro_torch.launch.mesh import make_host_mesh, make_mesh
         from repro_torch.runtime.sharding import (P, distribute, param_specs,
                                                   to_shardings)
+        from repro_torch.models import layers
         mesh = make_host_mesh(2, 2)
         for arch in ARCHS:
             res = _run(arch, mesh)
             if rank == 0:
                 _save(res, os.path.join(out_dir, f"{arch}.npz"))
+        # The model axis divides the q heads but not the KV heads.
+        mesh14 = make_host_mesh(1, 4)
+        heads, attend = [], layers.chunked_attention
+        layers.chunked_attention = lambda q, k, v, **kw: (
+            heads.append((q.shape[2], k.shape[2])), attend(q, k, v, **kw))[1]
+        try:
+            res = _run("chatglm3-6b", mesh14)
+        finally:
+            layers.chunked_attention = attend
+        comms = {name: _decode_comms(m)
+                 for name, m in (("2x2", mesh), ("1x4", mesh14))}
+        if rank == 0:
+            _save(res, os.path.join(out_dir, "chatglm3-6b_1x4.npz"))
+            with open(os.path.join(out_dir, "mesh_1x4.json"), "w") as f:
+                json.dump({"heads": sorted(set(heads)), "comms": comms}, f)
         # Elastic restore: saved from 2x2, restored onto 4x1.
         cfg = _cfg("chatglm3-6b")
         params = init_params(cfg, seed=7, device="cpu")
@@ -385,6 +469,60 @@ def test_mesh_prefill_and_decode_match_one_device(arch, gloo_run, plain):
         else:
             np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL,
                                        err_msg=key)
+
+
+def _assert_matches(got, want: dict) -> None:
+    assert sorted(got.files) == sorted(want)
+    for key, w in want.items():
+        g = got[key]
+        if "tokens" in key:
+            np.testing.assert_array_equal(g, w, err_msg=key)
+        elif "credits" in key:
+            np.testing.assert_array_equal(g, 4)
+            np.testing.assert_array_equal(w, 1)
+        else:
+            np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL,
+                                       err_msg=key)
+
+
+def test_mesh_1x4_matches_one_device(gloo_run, plain):
+    """Prefill and decode logits, caches, greedy tokens, the train step's
+    loss, grad norm, params and first moment, and the compiled train
+    step, with the KV heads repeated over a model axis they do not
+    divide."""
+    got = np.load(gloo_run / "chatglm3-6b_1x4.npz")
+    _assert_matches(got, {pytree.keystr(p): x.detach().numpy() for p, x in
+                          pytree.tree_flatten_with_path(
+                              plain["chatglm3-6b"])[0]})
+
+
+def test_mesh_1x4_attention_splits_over_q_heads(gloo_run):
+    # chatglm3-6b reduced: H = 4 q heads, K = 2 KV heads; model axis of 4.
+    rec = json.loads((gloo_run / "mesh_1x4.json").read_text())
+    assert rec["heads"] == [[1, 1]]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_mesh_decode_moves_no_cache_sized_collective(mesh, gloo_run):
+    cfg = _cfg("chatglm3-6b")
+    data = {"2x2": 2, "1x4": 1}[mesh]
+    rows, h, d = 4 // data, cfg.num_heads, cfg.qk_head_dim
+    rec = json.loads((gloo_run / "mesh_1x4.json").read_text())["comms"][mesh]
+    layers = cfg.num_layers * 2             # two decode steps
+    # The cache attention: per layer, the softmax's max and sum and the
+    # partial p@V, all-reduced over the model axis ...
+    reduces = [op for op in rec["attention"] if op[0] == "all_reduce"]
+    assert reduces == [["all_reduce", [rows, h]], ["all_reduce", [rows, h]],
+                       ["all_reduce", [rows, h, d]]] * layers
+    # ... and otherwise moves the new token's k and v alone; no collective
+    # of the step moves slots of the cache: every operand in the heads
+    # layout (B, positions, heads, D) holds one position.
+    shapes = [shape for _, shape in rec["attention"] + rec["other"]]
+    assert all(op[0] == "all_reduce" or op[1][1] == 1
+               for op in rec["attention"])
+    assert all(len(shape) != 4 or shape[1] == 1 for shape in shapes)
+    assert rec["comm_all_reduce"] == sum(
+        op[0] == "all_reduce" for op in rec["attention"] + rec["other"])
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)

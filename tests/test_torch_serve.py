@@ -13,6 +13,7 @@
 """
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -163,6 +164,64 @@ def test_engine_api_on_cpu():
     assert engine.last_credits == 1
 
 
+class _CardWork:
+    """Stand-in for a step's work on the card's one stream: done at
+    ``t_done``; ``synchronize`` (an event recorded after it) waits until
+    then, ``item``/``cpu`` (a blocking copy queued behind everything on
+    the stream) until ``t_stream``, when the last queued step is done."""
+
+    def __init__(self, t_done, t_stream, value=None):
+        self.t_done, self.t_stream, self.value = t_done, t_stream, value
+
+    def _until(self, t):
+        time.sleep(max(0.0, t - time.perf_counter()))
+
+    def synchronize(self):
+        self._until(self.t_done)
+
+    def query(self):
+        return time.perf_counter() >= self.t_done
+
+    def item(self):
+        self._until(self.t_stream)
+        return self.value.item()
+
+    def cpu(self):
+        self._until(self.t_stream)
+        return self.value
+
+
+def test_a_decode_wait_excludes_a_prefill_queued_after_it():
+    """ROADMAP C15: on the card a decode's credits and tokens are copied to
+    its own pinned host buffers right after it is queued, behind which its
+    ``done`` event is recorded, so ``wait_step`` waits for that decode
+    alone; a blocking read of the device outputs would also wait for the
+    refill prefill the pipelined loop queues after it.  Here the decode is
+    done 50 ms from now and the prefill behind it 600 ms from now."""
+    from repro_torch.serve.batcher import PendingStep
+    engine = ServingEngine(ARCH, max_batch=2, max_len=12, device="cpu")
+    now = time.perf_counter()
+    t_decode, t_prefill = now + 0.05, now + 0.6
+    tokens = torch.tensor([3, 4], dtype=torch.int32)
+    pending = PendingStep(
+        out={"credits": _CardWork(t_decode, t_prefill, torch.tensor(1)),
+             "next_token": _CardWork(t_decode, t_prefill, tokens),
+             "caches": engine.init_caches()},
+        launch_s=0.001, done=_CardWork(t_decode, t_prefill),
+        host={"credits": torch.tensor(1, dtype=torch.int32),
+              "next_token": tokens.clone()})
+    assert not engine.step_ready(pending)
+    tok, _, wall = engine.wait_step(pending)
+    np.testing.assert_array_equal(tok, [3, 4])
+    assert engine.last_credits == 1
+    assert 0.04 <= wall < 0.3, wall           # the decode's 50 ms, not 600
+    assert time.perf_counter() < t_prefill
+    # The CPU's steps finish before they return: no event, no host copy.
+    pend = engine.decode_async(np.ones((2, 1), np.int32),
+                               engine.init_caches(), 3)
+    assert pend.done is None and pend.host is None
+
+
 # --------------------------------------------------------------------------- #
 # Credit counter and dispatch
 # --------------------------------------------------------------------------- #
@@ -190,6 +249,15 @@ def test_credit_counter_threshold_fault_and_timing():
 
 def test_polling_sync_polls_each_output():
     assert PollingSync().wait({"a": torch.ones(2), "b": (torch.ones(1),)}) == 2
+    # As the reference's, one host interaction per device of its mesh.
+    from repro.core.sync import PollingSync as RefPollingSync
+    from repro.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import AbstractMesh
+    assert PollingSync().host_interactions() == 1
+    assert PollingSync(AbstractMesh((2, 4), ("data", "model"))
+                       ).host_interactions() == 8
+    assert RefPollingSync(make_mesh((1, 1), ("data", "model"))
+                          ).host_interactions() == 1
 
 
 @pytest.mark.parametrize("cls", [MulticastDispatcher, SequentialDispatcher])
