@@ -9,14 +9,19 @@ printing a result:
   1. card: name and power limit (nvidia-smi), torch version; TF32 off;
   2. build: every CUDA kernel of the port (decode_attention, daxpy,
      fused_adamw), one nvcc each, all started together, from the sources
-     here;
+     here; each decode-attention kernel's SASS counted (``cuobjdump``:
+     instructions, tensor-core HMMA, cp.async LDGSTS), the tensor-core
+     build required to hold HMMA;
   3. check: the decode-attention kernels against their plain PyTorch
      version on the card (the reference's cases, the serving shape, the
      serving shape with the new token on a chunk edge of the split, and the
      streaming shapes of chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b's
      shared attention: S = the streaming trace's max_len, lens 0, S - 1
      and chunk edges, bf16 and int8 caches) — caches bit-exact, attention
-     out within tolerance; the kernels' slot-shard form (a mesh's
+     out within tolerance; the streaming shapes and the G = 64 shape again
+     on the kernels' CUDA-core build (``cuda_core_build()``), beside the
+     tensor-core build bf16 calls take by default; the kernels' slot-shard
+     form (a mesh's
      flash-decoding) over P = 1, 2, 4 and 16 blocks of one cache, reduced
      on the card (SHARD_CASES: the streaming shape with the new token on
      a block's first and last slot, bf16, int8 and a ring, and
@@ -33,10 +38,15 @@ printing a result:
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
      HBM rate or ops over peak rate); the split's NSPLIT and each of its
-     two kernels' device time (torch.profiler); the slot-shard form's
-     passes (scores, stats, p@V) at each P beside the whole-cache kernels,
-     and its one-block call and plain version, at the streaming shape and
-     at decode_32k's;
+     three kernels' device time (torch.profiler); the launch floor (an
+     empty kernel on the same grids, as many launches); an attend-only
+     yardstick, ``scaled_dot_product_attention(..., enable_gqa=True)``
+     over the written cache with the live mask (another function: no rope,
+     no write; the port never calls it) at S = 160, 1040 and decode_32k's
+     shape; the CUDA-core build at the streaming shape; the slot-shard
+     form's passes (scores, stats, p@V) at each P beside the whole-cache
+     kernels, and its one-block call and plain version, at the streaming
+     shape and at decode_32k's;
   5. daxpy: the kernel against ``daxpy_plain``, bit-exact, on the shapes and
      dtypes of tests/test_kernels.py and every length 1..5000; the kernel
      ops' main path (``kernels.ops.daxpy``, one offloaded job per size) with
@@ -212,8 +222,9 @@ CASES = [
 FULL_CASE = ("chatglm3-6b-decode", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
              None, False, False, 0)   # lens drawn in [128, 160)
 # The serving shape with the new token on the first or last slot of a chunk
-# of the scores kernel's split (16 chunks of 10 slots at B=4, K=2, S=160),
-# in each cache dtype.
+# of the kernels' split (3 chunks of 64 slots at B=4, K=2, S=160; the
+# first four cases put it at the 10-slot chunks of an earlier split), in
+# each cache dtype.
 EDGE_CASES = [
     ("decode-chunk-edges", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
      [130, 139, 0, 159], False, False, 0),
@@ -223,6 +234,10 @@ EDGE_CASES = [
      [19, 20, 79, 80], True, False, 0),
     ("decode-chunk-edges-f32", "chatglm3-6b", 4, 160, 32, 2, 128, "f32",
      [10, 99, 100, 155], False, False, 0),
+    ("decode-tile-edges", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
+     [63, 64, 127, 128], False, False, 0),
+    ("decode-tile-edges-q8", "chatglm3-6b", 4, 160, 32, 2, 128, "bf16",
+     [0, 63, 64, 159], True, False, 0),
 ]
 # (case, offset): cases that take the kernels' scalar-load build, where a
 # cache row of D * sizeof(cache) bytes is no multiple of 16 (int8 with D=8,
@@ -238,9 +253,9 @@ SCALAR_LOAD_CASES = [
     (("decode-unaligned-caches-q8", "chatglm3-6b", 4, 160, 32, 2, 128,
       "bf16", [19, 20, 79, 80], True, False, 0), 3),
 ]
-# A decode shape whose scores kernel needs more than 48 KiB of shared
-# memory ((G + 32) * (D + 1) floats at G = 64, D = 128: 49,536 B), so its
-# launch calls cudaFuncSetAttribute: held under graph capture.
+# A decode shape whose kernels need more than 48 KiB of shared memory (at
+# G = 64, D = 128, bf16: ``DA.smem_bytes``), so their launches call
+# cudaFuncSetAttribute: held under graph capture.
 BIG_SMEM_CASE = ("decode-g64-captured", "chatglm3-6b", 2, 160, 64, 1, 128,
                  "bf16", [5, 150], False, False, 0)
 # The decode kernels' slot-shard form (a mesh's flash-decoding: a device
@@ -345,6 +360,39 @@ TOL = {"f32": dict(rtol=1e-5, atol=1e-6), "bf16": dict(rtol=1.6e-2, atol=1e-4)}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sass_report(name: str = "decode_attention") -> dict:
+    """Each kernel of a built library by ``cuobjdump -sass``: its SASS
+    instructions, tensor-core instructions (HMMA) and asynchronous copies
+    (LDGSTS), under a short name (pass<activation,cache,tensor
+    cores,16-byte loads[,shard]>)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    words = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8",
+             "Lb1E": "1", "Lb0E": "0"}
+    res, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : \S*?\d(decode_attention_(?:scores|pv|stats|"
+                      r"empty))(I(\S+?)EEv)?", line)
+        if m:
+            args = re.findall(r"13__nv_bfloat16|S1_|Lb[01]E|[fa](?=[aLfS]|$)",
+                              m.group(3) or "")
+            args = [words.get(a, args[0] if a == "S1_" else a) for a in args]
+            args = ["bf16" if a == "13__nv_bfloat16" else a for a in args]
+            key = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            res[key] = {"instructions": 0, "hmma": 0, "ldgsts": 0}
+        elif key and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            res[key]["instructions"] += 1
+            res[key]["hmma"] += "HMMA" in line
+            res[key]["ldgsts"] += "LDGSTS" in line
+    return res
 
 
 def card_line() -> str:
@@ -516,7 +564,7 @@ def _device_us(event) -> float:
     return getattr(event, "self_cuda_time_total", 0.0) if us is None else us
 
 
-def time_split(fn, dev, calls=100, parts=("scores", "pv")) -> dict:
+def time_split(fn, dev, calls=100, parts=("scores", "stats", "pv")) -> dict:
     """Device ms per call of each of the decode step's kernels
     (``decode_attention_<part>``; mean of ``calls`` profiled calls, L2
     flushed before each), by kernel name."""
@@ -551,6 +599,52 @@ def time_split(fn, dev, calls=100, parts=("scores", "pv")) -> dict:
     return res
 
 
+def time_floor(case, dev, launches: int | None = None) -> float:
+    """Median ms of ``launches`` launches of an empty kernel on ``case``'s
+    grid (B, K, NSPLIT) of 256 threads (CUDA events, as ``time_ms``): the
+    floor under the whole call's launches (by default as many as it makes:
+    two where its statistics fold into p@V, else three)."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as DA
+
+    _, _, b, s, h, kh, *_ = case
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit, _ = DA.split_plan(b, kh, s, sms)
+    if launches is None:
+        launches = 2 if DA.fold_stats(h // kh, s, nsplit) else 3
+    fn = _build.library("decode_attention").decode_attention_empty_grid
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        rc = fn(b, kh, nsplit, launches, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
+    return time_ms(call, dev)
+
+
+def time_attend_only(case, dev) -> float:
+    """An attend-only yardstick: one ``scaled_dot_product_attention(...,
+    enable_gqa=True)`` call over ``case``'s caches after the kernels wrote
+    the new token, with the live mask, timed as the kernels are.  Another
+    function (no rope, no quantise, no write; the port never calls it),
+    so it is no ``library_ms``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+
+    _, _, b, s, *_ = case
+    args, _ = make_inputs(case, 0, dev)
+    DA.fused_decode_attention(*args)
+    q = args[0].transpose(1, 2).contiguous()                  # (B, H, 1, D)
+    k, v = (t.transpose(1, 2).contiguous() for t in args[3:5])  # (B, K, S, D)
+    mask = DA.live_slots(args[5].long() + 1, s)[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), dev)
+
+
 def time_case(case, dev) -> dict:
     """Kernel and plain version at one case's shape (lens as the case
     gives them), beside the bound, and the split the kernel takes."""
@@ -563,16 +657,24 @@ def time_case(case, dev) -> dict:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nsplit, chunk = DA.split_plan(b, kh, s, sms)
     bound_ms, bound_by, nbytes, ops = bound(case, args)
-    return {"case": case[0],
-            "shape": f"B={b} S={s} H={h} K={kh} D={d} "
-                     f"W={args[6].shape[-1]} {dt}",
-            "lens": lens, "nsplit": nsplit, "chunk": chunk,
-            "kernel_ms": time_ms(
-                lambda: DA.fused_decode_attention(*a_kernel), dev),
-            "plain_ms": time_ms(
-                lambda: DA.decode_attention_plain(*a_plain), dev),
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops}
+    res = {"case": case[0],
+           "shape": f"B={b} S={s} H={h} K={kh} D={d} "
+                    f"W={args[6].shape[-1]} {dt}",
+           "lens": lens, "nsplit": nsplit, "chunk": chunk,
+           "kernel_ms": time_ms(
+               lambda: DA.fused_decode_attention(*a_kernel), dev),
+           "plain_ms": time_ms(
+               lambda: DA.decode_attention_plain(*a_plain), dev),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops, **time_split(
+               lambda: DA.fused_decode_attention(*a_kernel), dev),
+           "floor_ms": time_floor(case, dev),
+           "tensor_cores": DA.tensor_cores(args[0].dtype, d)}
+    if res["tensor_cores"]:
+        with DA.cuda_core_build():
+            res["cuda_core_ms"] = time_ms(
+                lambda: DA.fused_decode_attention(*a_kernel), dev)
+    return res
 
 
 def time_shards(case, dev) -> dict:
@@ -594,7 +696,10 @@ def time_shards(case, dev) -> dict:
     bound_ms, bound_by, nbytes, ops = bound(case, args)
     res = {"case": case[0], "shape": f"B={b} S={s} H={h} K={kh} D={d} {dt}",
            "lens": lens, "whole": whole, "shards": {}, "bound_ms": bound_ms,
-           "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+           "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+           "floor_ms": time_floor(case, dev),
+           "one_block_floor_ms": time_floor(case, dev, launches=4),
+           "attend_only_sdpa_ms": time_attend_only(case, dev)}
     for shards in SHARD_COUNTS:
         fn = functools.partial(DA.decode_attention_over_shards, *clone(args),
                                shards=shards, **kw)
@@ -605,16 +710,19 @@ def time_shards(case, dev) -> dict:
             f"scores {passes['scores_ms']} + stats {passes['stats_ms']} + "
             f"p@V {passes['pv_ms']} ms of device time per call (all "
             f"blocks), whole call with its reductions {passes['ms']:.4f} ms;"
-            f" the whole-cache kernels: scores {whole['scores_ms']} + p@V "
-            f"{whole['pv_ms']} ms, call {whole['ms']:.4f} ms; bound "
-            f"{bound_ms:.6f} ms ({bound_by})")
+            f" the whole-cache kernels: scores {whole['scores_ms']} + stats "
+            f"{whole['stats_ms']} + p@V {whole['pv_ms']} ms, call "
+            f"{whole['ms']:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})")
     res["one_block_ms"] = time_ms(functools.partial(
         DA.decode_attention_shard, *clone(args), **kw), dev)
     res["one_block_plain_ms"] = time_ms(functools.partial(
         DA.decode_attention_shard_plain, *clone(args), **kw), dev)
     log(f"[time] {case[0]}: one-block call (the 1x1 mesh's) "
         f"{res['one_block_ms']:.4f} ms, its plain version "
-        f"{res['one_block_plain_ms']:.4f} ms")
+        f"{res['one_block_plain_ms']:.4f} ms; launch floor (empty kernel on "
+        f"the grid) {res['floor_ms']:.4f} ms for the whole call's launches, "
+        f"{res['one_block_floor_ms']:.4f} for 4; attend-only SDPA "
+        f"yardstick (another function) {res['attend_only_sdpa_ms']:.4f} ms")
     return res
 
 
@@ -708,8 +816,8 @@ def attention_layers(cfg) -> int:
 def stream_cases(sms: int, arch: str = ARCH) -> list:
     """The decode kernel at ``arch``'s streaming shape: B=4, S = the CLI
     trace's max_len, with the new token at 0, S - 1 and on chunk edges of
-    the scores kernel's split (the middle of the row where the split has
-    one chunk), in bf16 and int8 caches; and lens drawn in [128, S)."""
+    the kernels' split (the middle of the row where the split has one
+    chunk), in bf16 and int8 caches; and lens drawn in [128, S)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as DA
     cfg = get_config(arch)
@@ -1057,11 +1165,13 @@ def check_no_sync(dev) -> dict:
 def check_captured_kernel(dev, case=BIG_SMEM_CASE) -> dict:
     """The decode kernel inside a captured graph: a ``CompiledStep`` of
     ``fused_decode_attention`` with the caches static, at ``case`` (the
-    launch sets the scores kernel's shared-memory attribute and launches
+    launches set the kernels' shared-memory attribute and launch
     on the capture stream).  Its first call runs eagerly and captures,
-    the second replays; each starts from the same caches, and its out
-    and caches must equal the plain version's one step from them, with
-    one launch counted per call."""
+    the second and third replay; each starts from the same caches, and
+    its out and caches must equal the plain version's one step from them,
+    with one launch counted per call, and every call's out must be the
+    first's bit for bit (the tickets and chunk sums of a replay start as
+    the eager call's did)."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.launch.compile import CompiledStep
@@ -1076,8 +1186,8 @@ def check_captured_kernel(dev, case=BIG_SMEM_CASE) -> dict:
         device=dev, static_argnums=(3, 4), name=name)
     want = DA.decode_attention_plain(q, k, v, kc0.clone(), vc0.clone(), idx,
                                      cos, sin)
-    errs = []
-    for _ in range(2):
+    errs, outs = [], []
+    for _ in range(3):
         kc.copy_(kc0)
         vc.copy_(vc0)
         before = DA.LAUNCHES
@@ -1092,13 +1202,22 @@ def check_captured_kernel(dev, case=BIG_SMEM_CASE) -> dict:
         torch.testing.assert_close(got["out"], want[0], **TOL[dt],
                                    msg=lambda m: f"{name}: out: {m}")
         errs.append(float((got["out"].float() - want[0].float()).abs().max()))
+        outs.append(got["out"])
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError(f"{name}: a replay's out differs from the "
+                             "first call's")
     [st] = step.stats()
-    if not st["captured"] or st["calls"] != 2:
+    if not st["captured"] or st["calls"] != 3:
         raise AssertionError(f"{name}: {st}")
-    log(f"[capture] {name}: fused_decode_attention at G=64 (the scores "
-        f"kernel's shared memory above 48 KiB) captured in "
-        f"{st['capture_s']:.3f} s and replayed: out within {TOL[dt]} of the "
-        f"plain version (max abs err {max(errs):.3g}), caches bit-exact")
+    g, d = case[4] // case[5], case[6]
+    smem = max(DA.smem_bytes(g, d, q.element_size(), kc.element_size(),
+                             tc=DA.tensor_cores(q.dtype, d), pv=pv)
+               for pv in (False, True))
+    log(f"[capture] {name}: fused_decode_attention (G={g}, {smem} B of "
+        f"shared memory per CTA) captured in "
+        f"{st['capture_s']:.3f} s and replayed twice: out within {TOL[dt]} "
+        f"of the plain version (max abs err {max(errs):.3g}) and bit-equal "
+        f"across the calls, caches bit-exact")
     return {"case": name, "capture_s": st["capture_s"],
             "max_abs_err": max(errs)}
 
@@ -1785,6 +1904,7 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
             prof_walls.append(w)
             pos = pos + 1
     by_kind = {"decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    attn_parts = {"scores": 0.0, "stats": 0.0, "pv": 0.0}
     n_attn, top, host_ops, graph_launches, launch_us = 0, [], 0, 0, 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1799,6 +1919,9 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
             top.append((us / 1e3 / steps, e.count // steps, e.key[:90]))
             if _kind(e.key) == "decode_attention":
                 n_attn += e.count
+                for part in attn_parts:
+                    if f"decode_attention_{part}" in e.key:
+                        attn_parts[part] += us / 1e3 / steps
     top.sort(reverse=True)
     replay_ms = None
     graphs = eng._dec_jit.graphs()
@@ -1825,6 +1948,7 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
            "step_wall_ms_median": wall_ms,
            "profiled_step_wall_ms": prof_wall_ms,
            "device_ms_per_step": by_kind,
+           "attention_ms_per_step_by_pass": attn_parts,
            "device_busy_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / prof_wall_ms if busy_ms else None,
            "idle_share_unprofiled":
@@ -1848,9 +1972,10 @@ def phase_profile(dev, warm=8, steps=4, max_len=160, prompt_len=128,
         f"profiled); device busy {busy_ms:.3f} ms = attention "
         f"kernel {by_kind['decode_attention']:.3f} + matmul "
         f"{by_kind['matmul']:.3f} + other {by_kind['other']:.3f} ms "
-        f"({n_attn / steps:.0f} attention kernel launches per step, two "
-        f"per call); idle share "
-        f"{res['idle_share']}")
+        f"({n_attn / steps:.0f} attention kernel launches per step, three "
+        f"per call, four on a mesh: scores {attn_parts['scores']:.3f} + stats "
+        f"{attn_parts['stats']:.3f} + p@V {attn_parts['pv']:.3f} ms); idle "
+        f"share {res['idle_share']}")
     log(f"[{tag}] {card_line()}: queueing a step (placement, input "
         f"copies, replay, output copies) {res['host_queue_ms_median']:.3f} "
         f"ms of host time (median of {warm}); idle share against the "
@@ -3168,6 +3293,14 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
+    results["sass"] = sass = sass_report()
+    for kname, n in sass.items():
+        log(f"[build] decode_attention SASS {kname}: {n['instructions']} "
+            f"instructions, {n['hmma']} HMMA, {n['ldgsts']} LDGSTS")
+    tc = [n for k, n in sass.items() if k.startswith(
+        ("decode_attention_scores<bf16,bf16,1", "decode_attention_pv<bf16,bf16,1"))]
+    if not tc or not all(n["hmma"] for n in tc):
+        raise AssertionError(f"the tensor-core build has no HMMA: {sass}")
 
     # 3. Decode-attention kernel vs plain version.
     results["checks"] = [check_case(c, 0, dev) for c in CASES + EDGE_CASES]
@@ -3187,6 +3320,13 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     family_cases = {a: stream_cases(sms, a) for a in (MOE_ARCH, HYBRID_ARCH)}
     for cases in family_cases.values():
         results["checks"] += [check_case(c, 0, dev) for c in cases]
+    # ... the streaming shapes and the G = 64 shape on the CUDA-core build
+    # (bf16 calls take the tensor-core build by default) ...
+    with DA.cuda_core_build():
+        results["cuda_core_checks"] = [
+            check_case(c, 0, dev) for c in
+            s_cases + [c for cs in family_cases.values() for c in cs]
+            + [BIG_SMEM_CASE]]
     # ... and the slot-shard form over P blocks of one cache.
     results["shard_checks"] = [check_shard_case(c, p, dev)
                                for c in SHARD_CASES for p in SHARD_COUNTS]
@@ -3208,20 +3348,27 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     nsplit, chunk = DA.split_plan(
         FULL_CASE[2], FULL_CASE[5], FULL_CASE[3],
         torch.cuda.get_device_properties(dev).multi_processor_count)
+    floor_ms = time_floor(FULL_CASE, dev)
+    attend_ms = time_attend_only(FULL_CASE, dev)
     results["timing"] = {"shape": "B=4 S=160 H=32 K=2 D=128 W=32 bf16",
                          "lens": lens, "kernel_ms": kernel_ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "bytes": nbytes, "ops": ops,
                          "nsplit": nsplit, "chunk": chunk, **split,
+                         "floor_ms": floor_ms,
+                         "attend_only_sdpa_ms": attend_ms,
                          "l2": "flushed before each launch"}
     log(f"[time] fused_decode_attention at {results['timing']['shape']}, "
         f"lens {lens}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B / 3.35 TB/s, "
         f"{ops} ops)")
-    log(f"[time] NSPLIT {nsplit} (chunks of {chunk} slots): scores kernel "
-        f"{split['scores_ms']} ms + p@V kernel {split['pv_ms']} ms of device "
-        f"time per call (torch.profiler, mean of {split['calls']} calls), "
-        f"whole call {kernel_ms:.4f} ms (CUDA events)")
+    log(f"[time] NSPLIT {nsplit} (chunks of {chunk} slots): scores "
+        f"{split['scores_ms']} + stats {split['stats_ms']} + p@V "
+        f"{split['pv_ms']} ms of device time per call (torch.profiler, mean "
+        f"of {split['calls']} calls), whole call {kernel_ms:.4f} ms (CUDA "
+        f"events); launch floor (as many empty kernels on the grid) "
+        f"{floor_ms:.4f} ms; attend-only SDPA yardstick (another function) "
+        f"{attend_ms:.4f} ms")
     del args, a_kernel, a_plain
     # ... and at the streaming shapes (lens drawn in [128, S)): chatglm3's,
     # qwen3-moe's and zamba2's shared attention's.
@@ -3231,7 +3378,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
         results[key] = st = time_case(cases[-1], dev)
         log(f"[time] fused_decode_attention at {st['shape']} "
             f"({cases[-1][1]}), lens {st['lens']}: kernel "
-            f"{st['kernel_ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+            f"{st['kernel_ms']:.4f} ms (scores {st['scores_ms']} + stats "
+            f"{st['stats_ms']} + p@V {st['pv_ms']} of device time; launch "
+            f"floor {st['floor_ms']:.4f}; CUDA-core build "
+            f"{st.get('cuda_core_ms')}), plain {st['plain_ms']:.4f} ms, "
             f"bound {st['bound_ms']:.6f} ms ({st['bound_by']}: "
             f"{st['bytes']} B); NSPLIT {st['nsplit']}")
     st = results["stream_timing"]
@@ -3376,9 +3526,17 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
          "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": results["serve"]["launches"], "max_abs_err": full_err,
          "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-         "scores_ms": split["scores_ms"], "pv_ms": split["pv_ms"],
+         "scores_ms": split["scores_ms"], "stats_ms": split["stats_ms"],
+         "pv_ms": split["pv_ms"], "floor_ms": floor_ms,
          "nsplit": nsplit, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None,
+         "sass_main_path": {k: [n["instructions"], n["hmma"]]
+                            for k, n in results["sass"].items()
+                            if "<bf16,bf16,1,1" in k},
+         "attend_only_sdpa_ms": {
+             "S=160": attend_ms, "S=1040": sh["attend_only_sdpa_ms"],
+             "decode_32k": results["shard_timing"][SHARD_CASES[-1][0]][
+                 "attend_only_sdpa_ms"]},
          "stream_launches": results["stream"]["launches"],
          "design_launches": results["design_point"]["launches"],
          "fleet_launches": sum(results["fleet"][t]["launches"]
@@ -3387,6 +3545,8 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
          "stream_shape_ms": st["kernel_ms"],
          "stream_shape_plain_ms": st["plain_ms"],
          "stream_shape_bound_ms": st["bound_ms"],
+         **{f"stream_shape_{k}": st[k] for k in (
+             "scores_ms", "stats_ms", "pv_ms", "floor_ms", "cuda_core_ms")},
          **{f"{tag}_{key}": val
             for tag, arch in (("moe", MOE_ARCH), ("hybrid", HYBRID_ARCH))
             for key, val in (
@@ -3396,7 +3556,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
                 ("shape_plain_ms",
                  results[f"stream_timing_{arch}"]["plain_ms"]),
                 ("shape_bound_ms",
-                 results[f"stream_timing_{arch}"]["bound_ms"]))}},
+                 results[f"stream_timing_{arch}"]["bound_ms"]),
+                *((f"shape_{k}", results[f"stream_timing_{arch}"].get(k))
+                  for k in ("scores_ms", "stats_ms", "pv_ms", "floor_ms",
+                            "cuda_core_ms")))}},
         {"name": "fused_decode_attention_shard", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": results["mesh"]["serve"]["launches"],
@@ -3405,6 +3568,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
          "ms": sh["one_block_ms"], "plain_ms": sh["one_block_plain_ms"],
          "bound_ms": sh["bound_ms"], "bound_by": sh["bound_by"],
          "library_ms": None,
+         "floor_ms": sh["one_block_floor_ms"],
+         "attend_only_sdpa_ms": sh["attend_only_sdpa_ms"],
+         "decode_32k_one_block_ms": results["shard_timing"][
+             SHARD_CASES[-1][0]]["one_block_ms"],
          "passes_ms": {name: {p: {k: t[k] for k in ("scores_ms", "stats_ms",
                                                     "pv_ms", "ms")}
                               for p, t in tm["shards"].items()}

@@ -1,5 +1,5 @@
 // Fused decode-attention step for Hopper (sm_90a): rope + (int8 quantise)
-// + KV scatter + masked softmax attention, two launches per attention layer.
+// + KV scatter + masked softmax attention, two or three launches per call.
 //
 // Replaces the TPU kernel `fused_decode_attention` (body `_decode_kernel`)
 // of src/repro/kernels/decode_attention.py.  The plain PyTorch version of
@@ -8,56 +8,94 @@
 // step for step.
 //
 // What bounds it on an H100.  One decode token does ~4*H*D flops per
-// cached position against 2*K*D cache elements read, i.e. about 2*G
-// flop/byte in bf16 (G = H/K q heads per kv head), far below the ~295
-// flop/byte at which the tensor cores, not HBM, become the limit, so at
-// long S the bound is bytes: the live K/V over 3.35 TB/s.  At the
-// chatglm3-6b decode shape (B=4, S=160, K=2, D=128, bf16) that is ~0.2 us,
-// under the cost of one launch: there the kernel is bound by latency and by
-// how many SMs it keeps busy.  One CTA per (batch row, kv head) gave 8 CTAs
-// on 132 SMs, each walking the slots through chains of dependent warp
-// shuffles and global loads (0.119 ms).
+// cached position against 2*K*D cache elements read, about 2*G flop/byte
+// in bf16 (G = H/K q heads per kv head), far below the ~295 flop/byte at
+// which the tensor cores, not HBM, become the limit: the bound is the live
+// K/V read once over 3.35 TB/s (0.83 us at chatglm3-6b's streaming shape,
+// B=4, S=1040, K=2, G=16, D=128; 25 us at decode_32k's per-device 8 x
+// 32768).  Below ~10 MB of live cache the call is bound by latency: each
+// pass's launch, its first round trip to HBM, the handoff from one pass to
+// the next, and the instructions each CTA runs once, fetched cold.
 //
-// What the design does about it: the step runs as two ordinary launches on
-// the caller's stream, and the only state passed between CTAs is the f32
-// score scratch (B, K, G, S) that the wrapper allocates.
-//   A. decode_attention_scores, grid (B, K, NSPLIT): the slot axis is cut
-//      into NSPLIT chunks (NSPLIT from shapes only, on the host).  Each CTA
-//      ropes its group's G q heads into shared memory; the one CTA whose
-//      chunk holds slot `write` ropes, quantises and writes the new token,
-//      and is the only CTA that reads that slot.  The chunk's live K rows
-//      are staged in shared memory (16-byte loads, int8 dequantised), and
-//      one thread per (q head, slot) takes the dot over D from shared
-//      memory: no shuffle chain.  Dead and out-of-window slots get NEG_INF.
-//   B. decode_attention_pv, grid (B, K, G): one CTA per q head takes the
-//      softmax over the whole score row, as one launch did before (same
-//      max, sum and division, p rounded to the activation dtype), then p@V
-//      over the live slots, split across the warps with 16-byte V loads.
-//      The warp partials are summed in a fixed order through shared
-//      memory, so the output is the same from run to run (no atomics).
-// At the serving shape that is 128 CTAs for A and 128 for B.  Only the
-// summation order of the score dot and of p@V differs from one launch.
+// What the design does about it:
+//   * One CTA per (batch row, kv head, chunk of slots) in every pass, and
+//     each CTA holds all G q heads of its group, so every K and V element is
+//     read from device memory once per call (not once per q head).  The
+//     chunk is a whole number of 64-slot tiles (`split_plan`, from shapes
+//     only), sized for about four CTAs per SM even where B*K alone
+//     nearly fills the card.
+//   * K tiles of 64 slots (32 on CUDA cores) go through a ring of kStages =
+//     3 shared-memory stages, V tiles through kStagesPV = 2, with 16-byte
+//     cp.async, so the next tiles' loads are in flight while one is
+//     multiplied.  A chunk's first tiles are requested before the row's
+//     length arrives (rows past the live slots are then cleared or never
+//     scored); later tiles skip and zero-fill dead slots.  Caches whose rows
+//     are off a 16-byte boundary take the same rings filled by one-element
+//     loads.
+//   * bf16 activations with D % 16 == 0 run q.K^T and p@V on the tensor
+//     cores: mma.sync.m16n8k16 bf16 -> f32, fragments by ldmatrix from
+//     rows padded by 16 bytes (no bank conflicts), G padded to a multiple of
+//     16 rows (G = 16 fills the m16 tile).  int8 caches are dequantised into
+//     a bf16 tile first with load_row's rounding (code * scale, rounded to
+//     bf16).  f32 activations (TF32 stays off) and head dims that are no
+//     multiple of 16 run the same tiles on CUDA cores.
+//   * The softmax is taken by whole CTAs: the scores pass writes each
+//     chunk's row maxima; each chunk's sum of exp(s - M) under the row's
+//     max M is taken by one warp (lanes stride the chunk, a butterfly adds
+//     the lanes) and the chunk sums are added in chunk order.  That is one
+//     fixed order over the row, the same in the whole call and in the
+//     slot-shard form, so one block stays bit-equal to the whole call.  No
+//     log-sum-exp merge of per-chunk (m, l): it would round p under a local
+//     max.  Where a row group's scores fit in kFoldBytes (S = 160 at G =
+//     16; zamba2's G = 1) every p@V CTA takes the sums itself, in that
+//     order, and the call makes two launches; else a stats pass takes them
+//     (three launches; S = 1040 at G >= 8, decode_32k).
+//   * p@V is split over the same chunks: f32 partials (B, K, NSPLIT, G, D),
+//     summed in chunk order and cast once by the last CTA of the group.
+//     The tickets that find the last CTA live in the call's workspace and
+//     are zeroed by the scores pass of the same call, so every call (and
+//     every replay of a captured graph) starts them at 0.
+//   * The passes after the first launch with programmatic dependent launch:
+//     the scores pass lets them start at once, and p@V stages its first V
+//     tiles and the new token's v row (patched into the tile that holds its
+//     slot) before griddepcontrol.wait; graphs capture it as a programmatic
+//     edge.
+//   * Compact code.  At decode shapes each CTA runs its code once, so its
+//     time follows the instructions fetched, not the flops: loops stay
+//     rolled and the tile loaders, dequantiser and copies are single
+//     (__noinline__) copies (chip_smoke.py prints each kernel's SASS
+//     instruction count beside its HMMA count).
+//   * The f32 score scratch (B, K, G, S) is kept: it is written once (live
+//     slots only) and read twice (stats and p@V, or p@V alone), G*4 bytes
+//     per live slot and group, a quarter of a bf16 K row at G = 16, D = 128,
+//     mostly out of L2.  Recomputing q.K^T in the p@V pass would read every
+//     K row again from HBM instead.
+//
+// Launches: A. decode_attention_scores, S. decode_attention_stats (sum, not
+// folded), B. decode_attention_pv, all on grid (B, K, NSPLIT) on the
+// caller's stream.  A CTA of A ropes its group's q heads; the one CTA whose
+// chunk holds slot `write` ropes, quantises and writes the new token, and
+// patches that row into its staged tile (the tile's load may have read the
+// slot before the write); no other CTA of A reads that slot.
 //
 // The slot-shard form (flash-decoding over a mesh's model axis, the layout
-// the reference's partitioner gives its decode step): a device holds
-// S_local of the cache's S_total slots, from global slot `slot_base`, and
-// runs the same function on them with the softmax's statistics reduced
-// across devices by the caller's collectives, exactly as the reference's
-// partition of one softmax computes it:
-//   A. decode_attention_scores as above, its masks and the new token's
-//      slot read in global positions: only the block holding `write`
-//      writes it (a write past S_total is dropped, as everywhere);
-//   S. decode_attention_stats, one warp per score row: the row's local
-//      max, then (after an all-reduce MAX) its local sum of exp(s - M)
-//      under the global max M (then an all-reduce SUM), each taken as
-//      kernel B's step 1 takes it;
-//   B. decode_attention_pv with M and SUM given: p rounded as above, the
-//      f32 partial p@V of the local slots, not cast; the caller's
-//      all-reduce SUM of the partials and one cast finish the step.
-// A log-sum-exp merge of per-device (m, l, o) would round p under a local
-// max and move bf16 results away from the unsplit kernel, so it is not
-// used.  With one shard (slot_base 0, S_local = S_total, the collectives
-// the identity) every value is the unsplit call's, bit for bit.  The cache
+// the reference's partitioner gives its decode step): a device holds S_local
+// of the cache's S_total slots, from global slot `slot_base`, and runs the
+// same function on them with the softmax's statistics reduced across
+// devices by the caller's collectives, exactly as the reference's partition
+// of one softmax computes it:
+//   A. decode_attention_scores as above, masks and the new token's slot in
+//      global positions: only the block holding `write` writes it (a write
+//      past S_total is dropped, as everywhere);
+//   M. decode_attention_stats, max pass: each row's local max over its chunk
+//      maxima (then an all-reduce MAX);
+//   S. decode_attention_stats, sum pass, under the global max: the local
+//      sum in the whole call's order (then an all-reduce SUM);
+//   B. decode_attention_pv under the global max and sum: the f32 partial
+//      p@V of the local slots, summed over the chunks and not cast; the
+//      caller's all-reduce SUM of the partials and one cast finish the step.
+// With one shard (slot_base 0, S_local = S_total, the collectives the
+// identity) every value is the whole call's, bit for bit.  The cache
 // arguments may be views of a larger cache along the slot axis: `ldb` is
 // their batch stride in slot rows (S_local for a block of its own).
 //
@@ -68,10 +106,16 @@
 //   * int8 quantisation: scale = max(amax/127, 1e-8) with true division,
 //     code = rint(x/scale) (half-to-even) clipped to +-127;
 //   * scores accumulate in f32 and are divided (not multiplied by a
-//     reciprocal) by sqrtf(D); masked slots hold NEG_INF = -0.7*FLT_MAX;
-//   * one softmax over all S slots; p is rounded to the value dtype before
-//     p@V, which accumulates in f32 over the live slots only (masked p is
-//     exactly 0) and is cast to the activation dtype once.
+//     reciprocal) by sqrtf(D); masked slots count as NEG_INF = -0.7*FLT_MAX
+//     in the row's max (they hold p = 0 and add nothing to the sum);
+//   * one softmax over all S slots, NaN carried as nan_max carries it; p is
+//     rounded to the value dtype before p@V, which accumulates in f32 and is
+//     cast to the activation dtype once.
+//
+// Workspace (one device buffer per call, laid out by `Workspace`):
+// scores (B,K,G,S) f32 | chunk maxima (B,K,NSPLIT,G) | chunk sums (same) |
+// the whole call's max and sum (B,H) each | tickets (2,B*K) int32 |
+// p@V partials (B,K,NSPLIT,G,D) f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,14 +124,25 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStage = 32;       // K rows staged in shared memory at a time
-constexpr int kMaxHeadDim = 256;
+constexpr int kStages = 3;         // K tiles in the scores pass's shared-memory ring
+constexpr int kStagesPV = 2;       // V tiles in the p@V pass's ring
+constexpr int kTileTC = 64;        // slots per tile, tensor-core build
+constexpr int kTileCC = 32;        // slots per tile, CUDA-core build
+constexpr int kMaxG = 64;          // q heads per kv head
+constexpr int kMaxSmem = 232448;   // bytes of shared memory a Hopper CTA may use
+// The whole call folds the softmax's statistics into the p@V pass (two
+// launches) when a row group's scores and chunk maxima fit in this many
+// bytes of shared memory: every p@V CTA then takes the row's max and sum
+// itself, in the stats pass's order.  Past it, the stats pass runs.
+constexpr int kFoldBytes = 16 * 1024;
 // -0.7 * FLT_MAX computed in double and rounded once, as Python computes it.
 constexpr float kNegInf = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
 
@@ -143,409 +198,1204 @@ __device__ __forceinline__ int8_t quantize(float x, float scale) {
   return static_cast<int8_t>(r);
 }
 
-// kVec consecutive cache elements as f32, dequantised (and rounded to TA)
-// for int8 caches; one 16-byte load when kVec * sizeof(TC) == 16.
-template <typename TA, typename TC, int kVec>
-__device__ __forceinline__ void load_row(const TC* p, float scale, float* dst) {
-  TC v[kVec];
-  if constexpr (kVec * sizeof(TC) == 16) {
-    const int4 w = *reinterpret_cast<const int4*>(p);
-    memcpy(v, &w, 16);
+// One cache element as the activation dtype sees it: int8 codes are
+// dequantised and rounded to TA (the plain version's (code * scale).to(TA)).
+template <typename TA, typename TC>
+__device__ __forceinline__ float cache_val(TC x, float scale) {
+  if constexpr (std::is_same<TC, int8_t>::value) {
+    return round_to<TA>(__fmul_rn(to_f(x), scale));
   } else {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) v[i] = p[i];
-  }
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    if constexpr (std::is_same<TC, int8_t>::value) {
-      dst[i] = round_to<TA>(__fmul_rn(to_f(v[i]), scale));
-    } else {
-      dst[i] = to_f(v[i]);
-    }
+    return to_f(x);
   }
 }
 
-// TA: activation dtype of q/k_new/v_new/out (float or bf16).
-// TC: cache dtype, TA itself or int8_t (then k_scale/v_scale hold f32
-//     per-vector scales, shape (B, S, K, 1)).
-// Layouts: q/out (B,1,H,D); k_new/v_new (B,1,K,D); caches (B,S,K,D);
-// lens (B,) pre-write lengths; cos/sin (B,W); scratch (B,K,G,S) f32.
-// S is the block's slot count, ldb the caches' batch stride in slot rows
-// (S for a whole cache), slot_base the global slot of local slot 0 and
-// S_total the whole cache's slot count.
-
-// A. Rope, the new token and the scores of one chunk of slots.
-template <typename TA, typename TC, int kVec>
-__global__ void __launch_bounds__(kThreads) decode_attention_scores(
-    const TA* __restrict__ q, const TA* __restrict__ k_new, const TA* __restrict__ v_new,
-    TC* k_cache, TC* v_cache, float* k_scale, float* v_scale,
-    const int* __restrict__ lens, const float* __restrict__ cos_b,
-    const float* __restrict__ sin_b, float* scratch, int S, int ldb, int slot_base,
-    int S_total, int H, int K, int D, int W, int window, int is_ring) {
-  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
-  extern __shared__ float smem[];
-  const int ld = D + 1;            // padded rows: a warp's rows in distinct banks
-  const int G = H / K;
-  float* q_s = smem;               // (G, ld) roped queries, rounded to TA
-  float* k_s = smem + G * ld;      // (kStage, ld) staged K rows
-
-  const int b = blockIdx.x, kv = blockIdx.y;
-  const int chunk = (S + gridDim.z - 1) / gridDim.z;
-  const int lo = blockIdx.z * chunk, hi = min(lo + chunk, S);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lens[b];
-  const int write = (is_ring ? len % S_total : len) - slot_base;  // local slot
-  const float* cs = cos_b + static_cast<size_t>(b) * W;
-  const float* sn = sin_b + static_cast<size_t>(b) * W;
-
-  // 1. Rope the G q heads of this kv group into shared memory.
-  const TA* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kv) * G) * D;
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i - g * D;
-    q_s[g * ld + d] = rope_at(qb + static_cast<size_t>(g) * D, cs, sn, d, W);
-  }
-
-  // 2. New token, in the one CTA whose chunk holds slot `write`: rope k,
-  //    quantise k and v for int8 caches, write the slot.  A write past the
-  //    cache (or outside this block's slots) is dropped, as a JAX scatter
-  //    drops it.
-  if (warp == 0 && write >= lo && write < hi) {
-    const TA* kn = k_new + (static_cast<size_t>(b) * K + kv) * D;
-    const TA* vn = v_new + (static_cast<size_t>(b) * K + kv) * D;
-    const size_t row = (static_cast<size_t>(b) * ldb + write) * K + kv;
-    if constexpr (kQuant) {
-      float kamax = 0.f, vamax = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        kamax = nan_max(kamax, fabsf(rope_at(kn, cs, sn, d, W)));
-        vamax = nan_max(vamax, fabsf(to_f(vn[d])));
-      }
-      kamax = warp_max(kamax);
-      vamax = warp_max(vamax);
-      const float ksc = nan_max(__fdiv_rn(kamax, 127.f), 1e-8f);
-      const float vsc = nan_max(__fdiv_rn(vamax, 127.f), 1e-8f);
-      for (int d = lane; d < D; d += 32) {
-        k_cache[row * D + d] = quantize(rope_at(kn, cs, sn, d, W), ksc);
-        v_cache[row * D + d] = quantize(to_f(vn[d]), vsc);
-      }
-      if (lane == 0) {
-        k_scale[row] = ksc;
-        v_scale[row] = vsc;
-      }
-    } else {
-      for (int d = lane; d < D; d += 32) {
-        k_cache[row * D + d] = from_f<TC>(rope_at(kn, cs, sn, d, W));
-        v_cache[row * D + d] = vn[d];
-      }
-    }
-  }
-  __syncthreads();  // the rows staged below include the slot just written
-
-  // 3. Scores of the chunk, kStage rows at a time: stage the live K rows in
-  //    shared memory, then one thread per (q head, slot) takes the dot.
-  //    Local slot pos is live iff pos < n_live and, with a window, its
-  //    global position lies inside it.
-  const int n_live = min(len + 1, S_total) - slot_base;
-  const int win_lo = len - window - slot_base;  // live iff pos > win_lo
-  const float sqrt_d = sqrtf(static_cast<float>(D));
-  const int groups = D / kVec;     // kVec-element groups per K row
-  float* sc = scratch + (static_cast<size_t>(b) * K + kv) * G * S;
-  for (int base = lo; base < hi; base += kStage) {
-    const int rows = min(kStage, hi - base);
-    for (int i = tid; i < rows * groups; i += blockDim.x) {
-      const int j = i / groups, e = i - j * groups, pos = base + j;
-      if (pos >= n_live || (window != 0 && pos <= win_lo)) continue;
-      const size_t r = (static_cast<size_t>(b) * ldb + pos) * K + kv;
-      float ks = 1.f;
-      if constexpr (kQuant) ks = k_scale[r];
-      load_row<TA, TC, kVec>(k_cache + r * D + e * kVec, ks, k_s + j * ld + e * kVec);
-    }
-    __syncthreads();
-    for (int p = tid; p < G * rows; p += blockDim.x) {
-      const int g = p / rows, j = p - g * rows, pos = base + j;
-      float s = kNegInf;
-      if (pos < n_live && (window == 0 || pos > win_lo)) {
-        const float* qg = q_s + g * ld;
-        const float* kr = k_s + j * ld;
-        float acc = 0.f;
-        for (int d = 0; d < D; ++d) acc = fmaf(qg[d], kr[d], acc);
-        s = __fdiv_rn(acc, sqrt_d);
-      }
-      sc[static_cast<size_t>(g) * S + pos] = s;
-    }
-    __syncthreads();  // before the next rows overwrite k_s
-  }
+// --------------------------------------------------------------------------
+// Asynchronous copies, ldmatrix and the bf16 tensor-core product.
+// --------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// V rows a warp covers at once: kVec-element groups of a row spread over
-// the lanes, 32 / groups rows side by side when a row needs fewer lanes.
-__host__ __device__ __forceinline__ int rows_per_pass(int D, int kVec) {
-  const int groups = D / kVec;
-  return groups >= 32 ? 1 : 32 / groups;
+// 16 bytes from global `src` to shared `dst`, or 16 zero bytes (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(fill ? 16 : 0));
 }
 
-// S. One warp per score row (B*K*G rows of S slots, q-head order): the
-//    row's max when m_in is null, else its sum of exp(s - m_in[row]).  The
-//    lanes stride the row and reduce as kernel B's step 1 does.
-__global__ void __launch_bounds__(kThreads) decode_attention_stats(
-    const float* __restrict__ scratch, const float* __restrict__ m_in,
-    float* __restrict__ out, int rows, int S) {
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const float* row = scratch + static_cast<size_t>(r) * S;
-  if (m_in == nullptr) {
-    float m = -INFINITY;
-    for (int pos = lane; pos < S; pos += 32) m = nan_max(m, row[pos]);
-    m = warp_max(m);
-    if (lane == 0) out[r] = m;
+// 4 bytes, or 4 zero bytes.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(fill ? 4 : 0));
+}
+
+// `nbytes` bytes from global `src` to shared `dst`, by the whole CTA, in
+// the widest cp.async pieces both addresses' alignment allows.
+__device__ __noinline__ void copy_async(void* dst, const void* src, int nbytes) {
+  const unsigned align = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src)) |
+                         static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst)) |
+                         static_cast<unsigned>(nbytes);
+  auto* d = static_cast<unsigned char*>(dst);
+  const auto* g = static_cast<const unsigned char*>(src);
+  if ((align & 15) == 0) {
+#pragma unroll 1
+    for (int i = threadIdx.x * 16; i < nbytes; i += kThreads * 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(d + i)),
+                   "l"(g + i));
+  } else if ((align & 7) == 0) {
+#pragma unroll 1
+    for (int i = threadIdx.x * 8; i < nbytes; i += kThreads * 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(d + i)),
+                   "l"(g + i));
+  } else if ((align & 3) == 0) {
+#pragma unroll 1
+    for (int i = threadIdx.x * 4; i < nbytes; i += kThreads * 4)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(d + i)),
+                   "l"(g + i));
   } else {
-    const float m = m_in[r];
-    float sum = 0.f;
-    for (int pos = lane; pos < S; pos += 32) sum += expf(__fsub_rn(row[pos], m));
-    sum = warp_sum(sum);
-    if (lane == 0) out[r] = sum;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < nbytes; i += kThreads) d[i] = g[i];
   }
 }
 
-// B. Softmax over the score row of one q head, then p@V.  kShard: the
-//    softmax's max and sum come in (stats_m, stats_s, one per row) and the
-//    f32 partial p@V of this block's slots goes out uncast.
-template <typename TA, typename TC, int kVec, bool kShard>
-__global__ void __launch_bounds__(kThreads) decode_attention_pv(
-    const TC* __restrict__ v_cache, const float* __restrict__ v_scale,
-    const int* __restrict__ lens,
-    typename std::conditional<kShard, float, TA>::type* __restrict__ out,
-    const float* __restrict__ scratch, const float* __restrict__ stats_m,
-    const float* __restrict__ stats_s, int S, int ldb, int slot_base, int S_total,
-    int H, int K, int D) {
-  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
-  constexpr int kMaxGroupsPerLane = (kMaxHeadDim / kVec + 31) / 32;
-  extern __shared__ float part[];  // (kWarps * R, D) warp partials
-  __shared__ float stats[2];
-
-  const int b = blockIdx.x, kv = blockIdx.y, g = blockIdx.z;
-  const int G = H / K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lens[b];
-  // This block's live slots: local 0 .. n_live-1 (global slot_base + ...).
-  const int n_live = max(0, min(min(len + 1, S_total) - slot_base, S));
-  const size_t row_id = (static_cast<size_t>(b) * K + kv) * G + g;
-  const float* row = scratch + row_id * S;
-
-  // 1. Max and sum of the softmax over all S slots, one warp, as a single
-  //    launch took them (or as given).
-  if constexpr (kShard) {
-    if (tid == 0) {
-      stats[0] = stats_m[row_id];
-      stats[1] = stats_s[row_id];
-    }
-  } else if (warp == 0) {
-    float m = -INFINITY;
-    for (int pos = lane; pos < S; pos += 32) m = nan_max(m, row[pos]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int pos = lane; pos < S; pos += 32) sum += expf(__fsub_rn(row[pos], m));
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      stats[0] = m;
-      stats[1] = sum;
-    }
-  }
-  __syncthreads();
-  const float m = stats[0], sum = stats[1];
-
-  // 2. p@V: lane (r, e) takes group e of the rows r, r + R, ... of its
-  //    warp's slots; warp w takes slots w*R + r + i*kWarps*R.
-  const int groups = D / kVec;
-  const int R = rows_per_pass(D, kVec);
-  const int r = groups >= 32 ? 0 : lane / groups;
-  const int e0 = groups >= 32 ? lane : lane - r * groups;
-  const bool active = r < R;
-  float acc[kMaxGroupsPerLane][kVec];
-#pragma unroll
-  for (int k = 0; k < kMaxGroupsPerLane; ++k) {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[k][i] = 0.f;
-  }
-  if (active) {
-    for (int pos = warp * R + r; pos < n_live; pos += kWarps * R) {
-      const float p = round_to<TA>(__fdiv_rn(expf(__fsub_rn(row[pos], m)), sum));
-      const size_t vr = (static_cast<size_t>(b) * ldb + pos) * K + kv;
-      float vs = 1.f;
-      if constexpr (kQuant) vs = v_scale[vr];
-#pragma unroll
-      for (int k = 0; k < kMaxGroupsPerLane; ++k) {
-        const int e = e0 + 32 * k;
-        if (e < groups) {
-          float vd[kVec];
-          load_row<TA, TC, kVec>(v_cache + vr * D + e * kVec, vs, vd);
-#pragma unroll
-          for (int i = 0; i < kVec; ++i) acc[k][i] = fmaf(p, vd[i], acc[k][i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxGroupsPerLane; ++k) {
-      const int e = e0 + 32 * k;
-      if (e < groups) {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) part[(warp * R + r) * D + e * kVec + i] = acc[k][i];
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. Sum the kWarps * R partials in a fixed order; one cast (none for a
-  //    shard's partial).
-  for (int d = tid; d < D; d += blockDim.x) {
-    float o = 0.f;
-    for (int i = 0; i < kWarps * R; ++i) o += part[i * D + d];
-    const size_t at = row_id * D + d;
-    if constexpr (kShard) {
-      out[at] = o;
-    } else {
-      out[at] = from_f<TA>(o);
-    }
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Every pointer and size a launch takes (unused ones null or 0).
-struct Args {
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// Programmatic dependent launch: a pass lets the next one (launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization) start its prologue,
+// and waits for the previous one's completion and memory before it reads
+// what that one wrote.  Both are no-ops around an ordinary launch.
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// c += a (16x16 bf16, row-major) * b (16x8 bf16, column-major), f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// --------------------------------------------------------------------------
+// Arguments, workspace and shared-memory layouts.
+// --------------------------------------------------------------------------
+// Layouts: q/out (B,1,H,D); k_new/v_new (B,1,K,D); caches (B,S,K,D) with
+// batch stride ldb slot rows; scales (B,S,K,1) f32; lens (B,) pre-write
+// lengths; cos/sin (B,W).  S is the block's slot count, slot_base the
+// global slot of local slot 0 and S_total the whole cache's slot count.
+struct Params {
   const void* q;
   const void* k_new;
   const void* v_new;
   void* k_cache;
   void* v_cache;
-  void* k_scale;
-  void* v_scale;
-  const void* lens;
-  const void* cos_b;
-  const void* sin_b;
+  float* k_scale;
+  float* v_scale;
+  const int* lens;
+  const float* cos_b;
+  const float* sin_b;
   void* out;        // (B, H, D): TA for the whole call, f32 for a shard's partial
-  void* scratch;    // (B, K, G, S) f32 scores
-  float* stats_m;   // (B, H) f32: a shard's max (written by A+S, read by B)
-  float* stats_s;   // (B, H) f32: the softmax sum (read by a shard's B)
-  int B, S, ldb, slot_base, S_total, H, K, D, W, window, is_ring, nsplit;
+  float* scores;    // workspace: (B, K, G, S)
+  float* cmax;      // workspace: (B, K, NSPLIT, G) chunk maxima
+  float* psum;      // workspace: (B, K, NSPLIT, G) chunk sums
+  float* m;         // (B, H): the softmax's max (whole call: workspace, written
+  float* s;         //   by the stats pass; shard: the all-reduced inputs), sum
+  float* m_out;     // (B, H): a shard's local max (max pass)
+  float* s_out;     // (B, H): a shard's local sum (sum pass)
+  int* tickets;     // workspace: (2, B*K): sum pass, p@V pass
+  float* part;      // workspace: (B, K, NSPLIT, G, D) p@V partials
+  int B, S, ldb, slot_base, S_total, H, K, G, D, W, window, is_ring, chunk, nsplit;
+  int fold;         // the p@V pass takes the softmax's max and sum itself
 };
 
-template <typename TA, typename TC, int kVec>
-int launch_scores(const Args& a, cudaStream_t stream) {
-  const int G = a.H / a.K;
-  const size_t smem_a = static_cast<size_t>(G + kStage) * (a.D + 1) * sizeof(float);
-  auto ka = decode_attention_scores<TA, TC, kVec>;
-  if (smem_a > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ka, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_a));
-    if (e != cudaSuccess) return static_cast<int>(e);
+__host__ __device__ constexpr size_t align_up(size_t x, size_t a) {
+  return (x + a - 1) / a * a;
+}
+
+// Byte offsets of the workspace's parts; `bytes` is its size.
+struct Workspace {
+  size_t scores, cmax, psum, m, s, tickets, part, bytes;
+  __host__ __device__ Workspace(int B, int K, int G, int D, int S, int nsplit) {
+    const size_t rows = static_cast<size_t>(B) * K * G;
+    size_t o = 0;
+    scores = o; o = align_up(o + rows * S * 4, 256);
+    cmax = o;   o = align_up(o + rows * nsplit * 4, 256);
+    psum = o;   o = align_up(o + rows * nsplit * 4, 256);
+    m = o;      o = align_up(o + rows * 4, 256);
+    s = o;      o = align_up(o + rows * 4, 256);
+    tickets = o; o = align_up(o + 2 * static_cast<size_t>(B) * K * 4, 256);
+    part = o;   o = align_up(o + rows * nsplit * D * 4, 256);
+    bytes = o;
   }
-  ka<<<dim3(a.B, a.K, a.nsplit), kThreads, smem_a, stream>>>(
-      static_cast<const TA*>(a.q), static_cast<const TA*>(a.k_new),
-      static_cast<const TA*>(a.v_new), static_cast<TC*>(a.k_cache),
-      static_cast<TC*>(a.v_cache), static_cast<float*>(a.k_scale),
-      static_cast<float*>(a.v_scale), static_cast<const int*>(a.lens),
-      static_cast<const float*>(a.cos_b), static_cast<const float*>(a.sin_b),
-      static_cast<float*>(a.scratch), a.S, a.ldb, a.slot_base, a.S_total, a.H, a.K,
-      a.D, a.W, a.window, a.is_ring);
-  return static_cast<int>(cudaGetLastError());
+};
+
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// Whether the whole call folds the statistics into the p@V pass.
+__host__ __device__ inline bool fold_stats(int G, int S, int nsplit) {
+  return (static_cast<long long>(G) * S + static_cast<long long>(nsplit) * G) * 4 <=
+         kFoldBytes;
 }
 
-template <typename TA, typename TC, int kVec, bool kShard>
-int launch_pv(const Args& a, cudaStream_t stream) {
-  using TO = typename std::conditional<kShard, float, TA>::type;
-  const size_t smem_b =
-      static_cast<size_t>(kWarps) * rows_per_pass(a.D, kVec) * a.D * sizeof(float);
-  decode_attention_pv<TA, TC, kVec, kShard>
-      <<<dim3(a.B, a.K, a.H / a.K), kThreads, smem_b, stream>>>(
-          static_cast<const TC*>(a.v_cache), static_cast<const float*>(a.v_scale),
-          static_cast<const int*>(a.lens), static_cast<TO*>(a.out),
-          static_cast<const float*>(a.scratch), a.stats_m, a.stats_s, a.S, a.ldb,
-          a.slot_base, a.S_total, a.H, a.K, a.D);
-  return static_cast<int>(cudaGetLastError());
+// Shared memory of one CTA of the scores pass (pv = false) or the p@V pass
+// (pv = true), in bytes from the start of the dynamic buffer:
+//   a:     scores: the roped q heads (rows x ald of CT); p@V: the p tile;
+//   in:    scores: the group's q rows, k_new, v_new (TA), cos, sin (f32);
+//          p@V: the new token's v row and scale (TC, f32);
+//   ring:  cache tiles (kStages, kStagesPV for p@V), kTile rows of rs bytes
+//          (16-byte pieces, rows padded by 16 bytes so ldmatrix's eight rows
+//          hit distinct banks);
+//   scale: the tiles' f32 scales (int8 caches);
+//   conv:  one tile dequantised to bf16 (tensor cores over int8 caches);
+//   x:     scores: the new token's k row; p@V: the staged scores (folded:
+//          the chunk maxima, NSPLIT x G, the group's G rows of S and the
+//          chunk sums, G x NSPLIT; else kStagesPV tiles of G x kTile);
+//   acc:   p@V: the f32 sums of p@V, rows x D;
+//   red:   scores: per-warp row maxima; p@V: the rows' max and sum.
+template <typename TA, typename TC, bool kTC>
+struct Layout {
+  using CT = typename std::conditional<kTC, __nv_bfloat16, float>::type;
+  static constexpr bool kQuant = std::is_same<TC, int8_t>::value;
+  static constexpr int kTile = kTC ? kTileTC : kTileCC;
+  int rows, ald, rs, cld, o_a, o_in, o_ring, o_scale, o_conv, o_x, o_acc, o_red, bytes;
+  __host__ __device__ Layout(int G, int D, bool pv, int S = 0, int nsplit = 0,
+                             bool fold = false) {
+    const int stages = pv ? kStagesPV : kStages;
+    const int sa = static_cast<int>(sizeof(TA)), sc = static_cast<int>(sizeof(TC));
+    rows = kTC ? (G + 15) / 16 * 16 : G;
+    ald = pv ? (kTC ? kTile + 8 : kTile) : (kTC ? D + 8 : D + 1);
+    rs = align16(D * sc) + 16;
+    cld = D + 8;
+    int o = 0;
+    o_a = o;     o += align16(rows * ald * static_cast<int>(sizeof(CT)));
+    o_in = o;    o += pv ? align16(D * sc) + 16
+                         : align16(G * D * sa) + 2 * align16(D * sa) + 2 * align16(D / 2 * 4);
+    o_ring = o;  o += stages * kTile * rs;
+    o_scale = o; o += kQuant ? stages * kTile * 4 : 0;
+    o_conv = o;  o += (kTC && kQuant) ? kTile * cld * 2 : 0;
+    o_x = o;     o += pv ? align16((fold ? 2 * nsplit * G + G * S : kStagesPV * G * kTile) * 4)
+                         : align16(D * sc);
+    o_acc = o;   o += pv ? rows * D * 4 : 0;
+    o_red = o;   o += pv ? 2 * rows * 4 : kWarps * rows * 4;
+    bytes = o;
+  }
+};
+
+// The block's live slots of row b inside [lo, hi): [a, e).  Local slot pos
+// is live iff pos < n_live and, with a window, its global position lies
+// inside it.
+__device__ __forceinline__ void live_range(const Params& p, int len, int lo, int hi, int& a,
+                                           int& e) {
+  const int n_live = min(len + 1, p.S_total) - p.slot_base;
+  a = p.window != 0 ? max(lo, len - p.window - p.slot_base + 1) : lo;
+  e = min(hi, n_live);
 }
 
-int launch_stats(const float* scratch, const float* m_in, float* out, int rows, int S,
-                 cudaStream_t stream) {
-  decode_attention_stats<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      scratch, m_in, out, rows, S);
-  return static_cast<int>(cudaGetLastError());
+// Stage kTile cache rows from local slot `base` of (b, kv) (caches of batch
+// stride ldb slot rows, K heads of D) into `dst` (row stride rs bytes) and,
+// for int8 caches, their scales into `sdst`; a row outside [a, e) is
+// zero-filled and not read.  kAsync: 16-byte cp.async
+// pieces (every row on a 16-byte boundary); else one-element loads.
+template <typename TC, bool kAsync, int kTile>
+__device__ __noinline__ void load_tile(const TC* cache, const float* scale,
+                                       unsigned char* dst, float* sdst, int rs, int ldb,
+                                       int K, int D, int b, int kv, int base, int a, int e) {
+  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
+  const size_t row0 = static_cast<size_t>(b) * ldb;
+  if constexpr (kAsync) {
+    // Thread t copies piece t % pieces of rows t / pieces, + rows_per, ...
+    constexpr int kPer = 16 / sizeof(TC);
+    const int pieces = D / kPer, rows_per = kThreads / pieces;
+    const int j0 = threadIdx.x / pieces, u = threadIdx.x - j0 * pieces;
+    if (j0 < rows_per) {
+#pragma unroll 1
+      for (int j = j0; j < kTile; j += rows_per) {
+        const int pos = base + j;
+        const bool live = pos >= a && pos < e;
+        const TC* src = live ? cache + ((row0 + pos) * K + kv) * D + u * kPer : cache;
+        cp_async16(dst + j * rs + u * 16, src, live);
+      }
+    }
+    if constexpr (kQuant) {
+      if (threadIdx.x < kTile) {
+        const int pos = base + threadIdx.x;
+        const bool live = pos >= a && pos < e;
+        cp_async4(sdst + threadIdx.x, live ? scale + (row0 + pos) * K + kv : scale, live);
+      }
+    }
+  } else {
+    const int rows_per = kThreads / D;
+    const int j0 = threadIdx.x / D, d = threadIdx.x - j0 * D;
+    if (j0 < rows_per) {
+#pragma unroll 1
+      for (int j = j0; j < kTile; j += rows_per) {
+        const int pos = base + j;
+        TC v;
+        if (pos >= a && pos < e) {
+          v = cache[((row0 + pos) * K + kv) * D + d];
+        } else if constexpr (kQuant) {
+          v = 0;
+        } else {
+          v = from_f<TC>(0.f);
+        }
+        reinterpret_cast<TC*>(dst + j * rs)[d] = v;
+      }
+    }
+    if constexpr (kQuant) {
+      if (threadIdx.x < kTile) {
+        const int pos = base + threadIdx.x;
+        sdst[threadIdx.x] = pos >= a && pos < e ? scale[(row0 + pos) * K + kv] : 0.f;
+      }
+    }
+  }
 }
 
+// An int8 tile (codes x scales) to bf16, rounded as load_row rounds it.
+template <int kTile>
+__device__ __noinline__ void dequant_tile(const unsigned char* raw, const float* scl,
+                                             int rs, __nv_bfloat16* conv, int cld, int D) {
+  const int groups = D / 8, rows_per = kThreads / groups;
+  const int j0 = threadIdx.x / groups, u = threadIdx.x - j0 * groups;
+  if (j0 >= rows_per) return;
+#pragma unroll 1
+  for (int j = j0; j < kTile; j += rows_per) {
+    const uint2 codes = *reinterpret_cast<const uint2*>(raw + j * rs + u * 8);
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t word = k < 2 ? codes.x : codes.y, sh = 16 * (k & 1);
+      const float lo = to_f(static_cast<int8_t>((word >> sh) & 0xff));
+      const float hi = to_f(static_cast<int8_t>((word >> (sh + 8)) & 0xff));
+      __nv_bfloat162 h2 = __floats2bfloat162_rn(__fmul_rn(lo, scl[j]), __fmul_rn(hi, scl[j]));
+      memcpy(&w[k], &h2, 4);
+    }
+    *reinterpret_cast<uint4*>(conv + j * cld + u * 8) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The new token's v row as the cache stores it, by one warp: int8 codes
+// under scale max(amax/127, 1e-8) (returned), or the row itself (scale 1).
+template <typename TA, typename TC>
+__device__ __noinline__ float v_row(const TA* vn, int D, int lane, TC* dst) {
+  if constexpr (std::is_same<TC, int8_t>::value) {
+    float amax = 0.f;
+#pragma unroll 1
+    for (int d = lane; d < D; d += 32) amax = nan_max(amax, fabsf(to_f(vn[d])));
+    const float vsc = nan_max(__fdiv_rn(warp_max(amax), 127.f), 1e-8f);
+#pragma unroll 1
+    for (int d = lane; d < D; d += 32) dst[d] = quantize(to_f(vn[d]), vsc);
+    return vsc;
+  } else {
+#pragma unroll 1
+    for (int d = lane; d < D; d += 32) dst[d] = vn[d];
+    return 1.f;
+  }
+}
+
+// Zero the rows of a staged tile outside the live slots [a, e) (and their
+// scales): the speculative loads read them, and 0 * NaN would poison p@V.
+template <typename TC, int kTile>
+__device__ __noinline__ void clear_dead_rows(unsigned char* raw, float* scl, int rs, int D,
+                                                int base, int a, int e) {
+  const int words = D * static_cast<int>(sizeof(TC)) / 4, rows_per = kThreads / words;
+  const int j0 = threadIdx.x / words, w = threadIdx.x - j0 * words;
+  if (j0 < rows_per) {
+#pragma unroll 1
+    for (int j = j0; j < kTile; j += rows_per) {
+      const int pos = base + j;
+      if (pos < a || pos >= e) reinterpret_cast<uint32_t*>(raw + j * rs)[w] = 0u;
+    }
+  }
+  if (std::is_same<TC, int8_t>::value && threadIdx.x < kTile) {
+    const int pos = base + threadIdx.x;
+    if (pos < a || pos >= e) scl[threadIdx.x] = 0.f;
+  }
+}
+
+// --------------------------------------------------------------------------
+// A. Rope, the new token and the scores of one chunk of slots.
+// --------------------------------------------------------------------------
+template <typename TA, typename TC, bool kTC, bool kAsync>
+__global__ void __launch_bounds__(kThreads) decode_attention_scores(const Params p) {
+  using L = Layout<TA, TC, kTC>;
+  using CT = typename L::CT;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kTile = L::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float kscale_s;
+  pdl_trigger();
+  const L lay(p.G, p.D, false);
+  CT* q_s = reinterpret_cast<CT*>(smem + lay.o_a);
+  unsigned char* ring = smem + lay.o_ring;
+  float* scale_s = reinterpret_cast<float*>(smem + lay.o_scale);
+  TC* knew_s = reinterpret_cast<TC*>(smem + lay.o_x);
+  float* red = reinterpret_cast<float*>(smem + lay.o_red);
+
+  const int b = blockIdx.x, kv = blockIdx.y, c = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.G, D = p.D, S = p.S, K = p.K, W = p.W;
+  const int lo = c * p.chunk, hi = min(lo + p.chunk, S);
+  const size_t grp = static_cast<size_t>(b) * K + kv;
+
+  // 1. One asynchronous group for the group's q rows, the new token's k
+  //    and v, cos and sin, before anything waits on memory.
+  constexpr int sa = static_cast<int>(sizeof(TA));
+  TA* q_in = reinterpret_cast<TA*>(smem + lay.o_in);
+  TA* kn = reinterpret_cast<TA*>(smem + lay.o_in + align16(G * D * sa));
+  TA* vn = reinterpret_cast<TA*>(reinterpret_cast<unsigned char*>(kn) + align16(D * sa));
+  float* cs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(vn) + align16(D * sa));
+  float* sn = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(cs) + align16(D / 2 * 4));
+  copy_async(q_in, static_cast<const TA*>(p.q) + (static_cast<size_t>(b) * p.H + kv * G) * D,
+             G * D * sa);
+  copy_async(kn, static_cast<const TA*>(p.k_new) + grp * D, D * sa);
+  copy_async(vn, static_cast<const TA*>(p.v_new) + grp * D, D * sa);
+  copy_async(cs, p.cos_b + static_cast<size_t>(b) * W, W * 4);
+  copy_async(sn, p.sin_b + static_cast<size_t>(b) * W, W * 4);
+  cp_async_commit();
+
+  // 2. The chunk's first tiles, loaded before the row's length is known on
+  //    the asynchronous build (rows past the live ones are never scored),
+  //    again once it is known where a window moves the live slots.
+  const TC* kc = static_cast<const TC*>(p.k_cache);
+  if constexpr (kAsync) {
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (lo + s * kTile < hi) {
+        load_tile<TC, true, kTile>(kc, p.k_scale, ring + s * kTile * lay.rs, scale_s + s * kTile,
+                                   lay.rs, p.ldb, p.K, p.D, b, kv, lo + s * kTile, lo, hi);
+      }
+      cp_async_commit();
+    }
+  }
+  if (c == 0 && tid < 2) p.tickets[tid * p.B * K + grp] = 0;  // this call's tickets
+#pragma unroll 1
+  for (int i = tid; i < kWarps * lay.rows; i += kThreads) red[i] = -INFINITY;
+  const int len = p.lens[b];
+  int a, e;
+  live_range(p, len, lo, hi, a, e);
+  const int write = (p.is_ring ? len % p.S_total : len) - p.slot_base;  // local slot
+  const bool writer = write >= lo && write < hi;
+  const int t0 = (a - lo) / kTile, t1 = a < e ? (e - lo + kTile - 1) / kTile : t0;
+  if (!kAsync || t0 != 0) {
+    if constexpr (kAsync) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (t0 + s < t1) {
+        load_tile<TC, kAsync, kTile>(kc, p.k_scale, ring + s * kTile * lay.rs,
+                                     scale_s + s * kTile, lay.rs, p.ldb, p.K, p.D, b, kv,
+                                     lo + (t0 + s) * kTile, a, e);
+      }
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<kStages - 1>();  // the inputs' group
+  __syncthreads();
+
+  // 3. Rope the G q heads of this kv group (padded rows zero).
+  {
+    const int rows_per = kThreads / D, g0 = tid / D, d = tid - g0 * D;
+    if (g0 < rows_per) {
+#pragma unroll 1
+      for (int g = g0; g < lay.rows; g += rows_per) {
+        const float v = g < G ? rope_at(q_in + g * D, cs, sn, d, W) : 0.f;
+        q_s[g * lay.ald + d] = from_f<CT>(v);
+      }
+    }
+  }
+
+  // 4. The new token, in the one CTA whose chunk holds slot `write`: rope
+  //    k, quantise k and v for int8 caches, write the slot, keep the k row
+  //    for the staged tile.  A write past the cache (or outside this
+  //    block's slots) is dropped, as a JAX scatter drops it.
+  if (writer && warp == kWarps - 1) {
+    TC* kw = static_cast<TC*>(p.k_cache);
+    TC* vw = static_cast<TC*>(p.v_cache);
+    const size_t row = (static_cast<size_t>(b) * p.ldb + write) * K + kv;
+    const float vsc = v_row<TA, TC>(vn, D, lane, vw + row * D);
+    if constexpr (kQuant) {
+      float kamax = 0.f;
+#pragma unroll 1
+      for (int d = lane; d < D; d += 32) kamax = nan_max(kamax, fabsf(rope_at(kn, cs, sn, d, W)));
+      const float ksc = nan_max(__fdiv_rn(warp_max(kamax), 127.f), 1e-8f);
+#pragma unroll 1
+      for (int d = lane; d < D; d += 32) {
+        const int8_t code = quantize(rope_at(kn, cs, sn, d, W), ksc);
+        kw[row * D + d] = code;
+        knew_s[d] = code;
+      }
+      if (lane == 0) {
+        p.k_scale[row] = ksc;
+        p.v_scale[row] = vsc;
+        kscale_s = ksc;
+      }
+    } else {
+#pragma unroll 1
+      for (int d = lane; d < D; d += 32) {
+        const TC kr = from_f<TC>(rope_at(kn, cs, sn, d, W));
+        kw[row * D + d] = kr;
+        knew_s[d] = kr;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. The chunk's live tiles: wait for the oldest stage, start the next
+  //    load into the stage freed by the last tile, score this one.
+  const float sqrt_d = sqrtf(static_cast<float>(D));
+  float* sc = p.scores + grp * G * S;
+#pragma unroll 1
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int tn = t + kStages - 1;
+    if (tn < t1) {
+      const int sn_ = (tn - t0) % kStages;
+      load_tile<TC, kAsync, kTile>(kc, p.k_scale, ring + sn_ * kTile * lay.rs,
+                                   scale_s + sn_ * kTile, lay.rs, p.ldb, p.K, p.D, b, kv, lo + tn * kTile,
+                                   a, e);
+    }
+    cp_async_commit();
+    const int st = (t - t0) % kStages, base = lo + t * kTile;
+    unsigned char* raw = ring + st * kTile * lay.rs;
+    float* scl = scale_s + st * kTile;
+    if (writer && write >= base && write < base + kTile) {  // the same in every thread
+      const int j = write - base;
+#pragma unroll 1
+      for (int d = tid; d < D; d += kThreads) reinterpret_cast<TC*>(raw + j * lay.rs)[d] = knew_s[d];
+      if (kQuant && tid == 0) scl[j] = kscale_s;
+      __syncthreads();
+    }
+    if constexpr (kTC) {
+      const unsigned char* kt_ = raw;
+      int krs = lay.rs;
+      if constexpr (kQuant) {
+        __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem + lay.o_conv);
+        dequant_tile<kTile>(raw, scl, lay.rs, conv, lay.cld, D);
+        __syncthreads();
+        kt_ = reinterpret_cast<const unsigned char*>(conv);
+        krs = lay.cld * 2;
+      }
+      // Warp w takes the 8 slots w*8.. of the tile, one m16 tile of q
+      // heads at a time: S (16 x 8) = Q (16 x D) K^T (D x 8).
+#pragma unroll 1
+      for (int nt = warp; nt < kTile / 8; nt += kWarps) {
+#pragma unroll 1
+        for (int mt = 0; mt < lay.rows / 16; ++mt) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+          for (int kt = 0; kt < D / 16; ++kt) {
+            uint32_t af[4], bf[2];
+            ldsm_x2(bf, kt_ + (nt * 8 + (lane & 7)) * krs + (kt * 16 + ((lane >> 3) & 1) * 8) * 2);
+            ldsm_x4(af, q_s + (mt * 16 + (lane & 15)) * lay.ald + kt * 16 + (lane >> 4) * 8);
+            mma_bf16(acc, af, bf);
+          }
+          float rm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int g = mt * 16 + (lane >> 2) + (i >> 1) * 8;
+            const int pos = base + nt * 8 + (lane & 3) * 2 + (i & 1);
+            if (g < G && pos >= a && pos < e) {
+              const float s = __fdiv_rn(acc[i], sqrt_d);
+              sc[static_cast<size_t>(g) * S + pos] = s;
+              rm[i >> 1] = nan_max(rm[i >> 1], s);
+            }
+          }
+          for (int h = 0; h < 2; ++h) {  // the 4 lanes of a row, then this warp's running max
+            float v = nan_max(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 1));
+            v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+            const int g = mt * 16 + (lane >> 2) + h * 8;
+            if ((lane & 3) == 0) red[warp * lay.rows + g] = nan_max(red[warp * lay.rows + g], v);
+          }
+        }
+      }
+    } else {
+      // One thread per (q head, slot), q heads fastest: a D-long dot from
+      // shared memory against the staged (dequantised) row.
+      const int slots_per = kThreads / G, j0 = tid / G, g = tid - j0 * G;
+#pragma unroll 1
+      for (int j = j0; j0 < slots_per && j < kTile; j += slots_per) {
+        const int pos = base + j;
+        if (pos >= a && pos < e) {
+          const CT* qg = q_s + g * lay.ald;
+          const TC* kr = reinterpret_cast<const TC*>(raw + j * lay.rs);
+          const float ks = kQuant ? scl[j] : 1.f;
+          float acc = 0.f;
+#pragma unroll 1
+          for (int d = 0; d < D; ++d) acc = fmaf(qg[d], cache_val<TA>(kr[d], ks), acc);
+          sc[static_cast<size_t>(g) * S + pos] = __fdiv_rn(acc, sqrt_d);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // this CTA's per-warp maxima (tensor cores) or scores (CUDA cores)
+
+  // 6. The chunk's row maxima: NEG_INF stands for every masked slot.
+  const bool dead = a > lo || e < hi || a >= e;
+  float* cm = p.cmax + (grp * p.nsplit + c) * G;
+  if constexpr (kTC) {
+#pragma unroll 1
+    for (int g = tid; g < G; g += kThreads) {
+      float m = dead ? kNegInf : -INFINITY;
+#pragma unroll 1
+      for (int w = 0; w < kWarps; ++w) m = nan_max(m, red[w * lay.rows + g]);
+      cm[g] = m;
+    }
+  } else {
+#pragma unroll 1
+    for (int g = warp; g < G; g += kWarps) {
+      float m = -INFINITY;
+#pragma unroll 1
+      for (int pos = a + lane; pos < e; pos += 32) m = nan_max(m, sc[static_cast<size_t>(g) * S + pos]);
+      m = warp_max(m);
+      if (lane == 0) cm[g] = nan_max(dead ? kNegInf : -INFINITY, m);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// S/M. The softmax's statistics, by whole CTAs.
+// --------------------------------------------------------------------------
+// The row max over the chunk maxima, reduced by one warp (lanes stride the
+// chunks): the same in the whole call's sum pass, in a shard's max pass and
+// in a folded p@V pass.
+__device__ __forceinline__ float row_max(const float* cm, int nsplit, int G, int g, int lane) {
+  float m = -INFINITY;
+#pragma unroll 1
+  for (int cc = lane; cc < nsplit; cc += 32) m = nan_max(m, cm[cc * G + g]);
+  return warp_max(m);
+}
+
+// One chunk's sum of exp(s - m) over its live slots [a, e), by one warp:
+// lanes stride the slots in order, a butterfly adds the lanes.  The same
+// in the stats pass and in a folded p@V pass.
+__device__ __forceinline__ float chunk_sum(const float* row, float m, int a, int e, int lane) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int pos = a + lane; pos < e; pos += 32) acc += expf(__fsub_rn(row[pos], m));
+  return warp_sum(acc);
+}
+
+// max_pass: grid (B, K, 1), each row's max over its chunk maxima into m_out.
+// Else the sum pass, grid (B, K, NSPLIT): each chunk's sum of exp(s - M)
+// under the row's max M (the chunk maxima's for the whole call, the reduced
+// `m` for a shard); the last CTA of the group adds the chunk sums in chunk
+// order (and, for the whole call, writes M beside the sum).
+__global__ void __launch_bounds__(kThreads) decode_attention_stats(const Params p, int max_pass,
+                                                                   int shard) {
+  __shared__ float m_s[kMaxG];
+  __shared__ int last_s;
+  pdl_trigger();
+  const int b = blockIdx.x, kv = blockIdx.y, c = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.G, K = p.K, S = p.S, NS = p.nsplit;
+  const size_t grp = static_cast<size_t>(b) * K + kv;
+  const size_t head0 = static_cast<size_t>(b) * p.H + kv * G;
+  const int lo = c * p.chunk, hi = min(lo + p.chunk, S);
+  int a, e;
+  live_range(p, p.lens[b], lo, hi, a, e);
+  pdl_wait();  // the scores pass's maxima and scores
+  const float* cm = p.cmax + grp * NS * G;
+  if (max_pass) {
+#pragma unroll 1
+    for (int g = warp; g < G; g += kWarps) {
+      const float m = row_max(cm, NS, G, g, lane);
+      if (lane == 0) p.m_out[head0 + g] = m;
+    }
+    return;
+  }
+#pragma unroll 1
+  for (int g = warp; g < G; g += kWarps) {
+    const float m = shard ? p.m[head0 + g] : row_max(cm, NS, G, g, lane);
+    const float sum = chunk_sum(p.scores + (grp * G + g) * S, m, a, e, lane);
+    if (lane == 0) {
+      p.psum[(grp * NS + c) * G + g] = sum;
+      m_s[g] = m;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(p.tickets + grp, 1) == NS - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+#pragma unroll 1
+  for (int g = tid; g < G; g += kThreads) {
+    float total = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < NS; ++cc) total += __ldcg(p.psum + (grp * NS + cc) * G + g);
+    if (shard) {
+      p.s_out[head0 + g] = total;
+    } else {
+      p.m[head0 + g] = m_s[g];
+      p.s[head0 + g] = total;
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// B. p@V of one chunk of slots, then the group's chunks summed.
+// --------------------------------------------------------------------------
+// The softmax's max M and sum SUM of each row come from the stats pass (or
+// a shard's reductions) or, folded (p.fold), from this CTA: M over the
+// chunk maxima as the max pass takes it, SUM chunk by chunk in chunk order
+// as the stats pass takes it, so every CTA of the row holds the same
+// values.  p = exp(s - M) / SUM rounded to TA over the chunk's live slots
+// (0 elsewhere); the f32 partial p@V of the chunk goes to the workspace;
+// the last CTA of the group adds the partials in chunk order and casts
+// once (kShard: writes the f32 sum uncast).  Launched programmatically
+// after the scores (or stats) pass, it stages its first V tiles, and the
+// new token's v row (p.v_new), before waiting for that pass.
+template <typename TA, typename TC, bool kTC, bool kAsync, bool kShard>
+__global__ void __launch_bounds__(kThreads) decode_attention_pv(const Params p) {
+  using L = Layout<TA, TC, kTC>;
+  using CT = typename L::CT;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kTile = L::kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_s;
+  __shared__ float vscale_s;
+  const int G = p.G, D = p.D, S = p.S, K = p.K, NS = p.nsplit;
+  const bool fold = p.fold != 0;
+  const L lay(G, D, true, S, NS, fold);
+  CT* p_s = reinterpret_cast<CT*>(smem + lay.o_a);
+  TC* vnew_s = reinterpret_cast<TC*>(smem + lay.o_in);
+  unsigned char* ring = smem + lay.o_ring;
+  float* scale_s = reinterpret_cast<float*>(smem + lay.o_scale);
+  float* x_s = reinterpret_cast<float*>(smem + lay.o_x);     // staged scores
+  float* acc_s = reinterpret_cast<float*>(smem + lay.o_acc);  // the f32 sums
+  float* stat = reinterpret_cast<float*>(smem + lay.o_red);  // [rows) max, [rows, 2 rows) sum
+
+  const int b = blockIdx.x, kv = blockIdx.y, c = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = c * p.chunk, hi = min(lo + p.chunk, S);
+  const size_t grp = static_cast<size_t>(b) * K + kv;
+  const size_t head0 = static_cast<size_t>(b) * p.H + kv * G;
+  const TC* vc = static_cast<const TC*>(p.v_cache);
+  const float* sc = p.scores + grp * G * S;
+  float* cm_s = x_s;                 // folded: NSPLIT x G chunk maxima,
+  float* rows_s = x_s + NS * G;      //   then G rows of S scores
+
+  // 1. The first V tiles, loaded before the row's length is known on the
+  //    asynchronous build, as in the scores pass (rows past the live slots
+  //    are cleared below), and before the pass this one follows is done.
+  //    Unfolded, each tile's scores are staged beside it.
+  auto stage_v = [&](int t, int t_first, int la, int le) {
+    const int st = (t - t_first) % kStagesPV;
+    load_tile<TC, kAsync, kTile>(vc, p.v_scale, ring + st * kTile * lay.rs,
+                                 scale_s + st * kTile, lay.rs, p.ldb, p.K, p.D, b, kv, lo + t * kTile, la, le);
+  };
+  auto stage_s = [&](int t, int t_first, int la, int le) {
+    if (fold) return;
+    const int base = lo + t * kTile;
+    float* dst = x_s + (t - t_first) % kStagesPV * G * kTile;
+#pragma unroll 1
+    for (int i = tid; i < G * kTile; i += kThreads) {
+      const int g = i / kTile, j = i - g * kTile, pos = base + j;
+      const bool live = pos >= la && pos < le;
+      cp_async4(dst + i, live ? sc + static_cast<size_t>(g) * S + pos : sc, live);
+    }
+  };
+  if constexpr (kAsync) {
+    for (int s = 0; s < kStagesPV - 1; ++s) {
+      if (lo + s * kTile < hi) stage_v(s, 0, lo, hi);
+      cp_async_commit();
+    }
+  }
+#pragma unroll 1
+  for (int i = tid; i < lay.rows * D; i += kThreads) acc_s[i] = 0.f;
+  const int len = p.lens[b];
+  int a, e, ra, re;
+  live_range(p, len, lo, hi, a, e);
+  live_range(p, len, 0, S, ra, re);  // the row's live slots
+  const int t0 = (a - lo) / kTile, t1 = a < e ? (e - lo + kTile - 1) / kTile : t0;
+  // The new token's v row, for the tile that holds its slot: the scores
+  // pass may not have written it when the tiles above were loaded.
+  const int write = (p.is_ring ? len % p.S_total : len) - p.slot_base;
+  const bool vwriter = p.v_new != nullptr && write >= lo && write < hi;
+  if (vwriter && warp == kWarps - 1) {
+    const float vsc = v_row<TA, TC>(static_cast<const TA*>(p.v_new) + grp * D, D, lane, vnew_s);
+    if (lane == 0) vscale_s = vsc;
+  }
+
+  // 2. Wait for the pass before; its outputs, one asynchronous group:
+  //    folded, the chunk maxima and the group's rows of scores (their dead
+  //    slots were never written and are never read); else the rows' max
+  //    and sum.
+  pdl_wait();
+  if (!kAsync || t0 != 0) {
+    if constexpr (kAsync) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int s = 0; s < kStagesPV - 1; ++s) {
+      if (t0 + s < t1) {
+        stage_v(t0 + s, t0, a, e);
+        stage_s(t0 + s, t0, a, e);
+      }
+    }
+  } else {
+    for (int s = 0; s < kStagesPV - 1; ++s) {
+      if (t0 + s < t1) stage_s(t0 + s, t0, a, e);
+    }
+  }
+  if (fold) {
+    copy_async(cm_s, p.cmax + grp * NS * G, NS * G * 4);
+    copy_async(rows_s, sc, G * S * 4);
+  } else {
+    copy_async(stat, p.m + head0, G * 4);
+    copy_async(stat + lay.rows, p.s + head0, G * 4);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 3. Folded: each row's max over the chunk maxima, then every chunk's
+  //    sum of each row (four (row, chunk) pairs per warp at a time, their
+  //    butterflies interleaved), then each row's sum in chunk order.
+  if (fold) {
+    float* csum = rows_s + G * S;    // (G, NSPLIT)
+#pragma unroll 1
+    for (int g = warp; g < G; g += kWarps) {
+      const float m = row_max(cm_s, NS, G, g, lane);
+      if (lane == 0) stat[g] = m;
+    }
+    __syncthreads();
+    constexpr int kU = 4;
+#pragma unroll 1
+    for (int q0 = warp * kU; q0 < G * NS; q0 += kWarps * kU) {
+      float acc[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int q = q0 + u, g = q / NS, cc = q - g * NS;
+        const int ca = max(cc * p.chunk, ra), ce = min(min(cc * p.chunk + p.chunk, S), re);
+        acc[u] = 0.f;
+        if (q < G * NS) {
+          const float* row = rows_s + g * S;
+          const float m = stat[g];
+#pragma unroll 1
+          for (int pos = ca + lane; pos < ce; pos += 32) acc[u] += expf(__fsub_rn(row[pos], m));
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kU; ++u) acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+      }
+      if (lane < kU && q0 + lane < G * NS) {
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (u == lane) csum[q0 + u] = acc[u];
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int g = tid; g < G; g += kThreads) {
+      float total = 0.f;
+#pragma unroll 1
+      for (int cc = 0; cc < NS; ++cc) total += csum[g * NS + cc];
+      stat[lay.rows + g] = total;
+    }
+  }
+
+  // 4. The chunk's live tiles: p, then the f32 sums of p@V in shared
+  //    memory, tile by tile in slot order.
+  const int n_nt = D / 8, pairs = lay.rows / 16 * n_nt;
+#pragma unroll 1
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<kStagesPV - 2>();
+    __syncthreads();
+    if (t + kStagesPV - 1 < t1) {
+      stage_v(t + kStagesPV - 1, t0, a, e);
+      stage_s(t + kStagesPV - 1, t0, a, e);
+    }
+    cp_async_commit();
+    const int st = (t - t0) % kStagesPV, base = lo + t * kTile;
+    unsigned char* raw = ring + st * kTile * lay.rs;
+    float* scl = scale_s + st * kTile;
+    const bool patch = vwriter && write >= base && write < base + kTile;
+    if (kAsync && (base < a || base + kTile > e)) {
+      clear_dead_rows<TC, kTile>(raw, scl, lay.rs, D, base, a, e);
+    }
+    if (patch) {
+      const int j = write - base;
+#pragma unroll 1
+      for (int d = tid; d < D; d += kThreads) reinterpret_cast<TC*>(raw + j * lay.rs)[d] = vnew_s[d];
+      if (kQuant && tid == 0) scl[j] = vscale_s;
+    }
+#pragma unroll 2
+    for (int i = tid; i < lay.rows * kTile; i += kThreads) {
+      const int g = i / kTile, j = i - g * kTile, pos = base + j;
+      float pv = 0.f;
+      if (g < G && pos >= a && pos < e) {
+        const float sv = fold ? rows_s[g * S + pos] : x_s[st * G * kTile + g * kTile + j];
+        pv = round_to<TA>(__fdiv_rn(expf(__fsub_rn(sv, stat[g])), stat[lay.rows + g]));
+      }
+      p_s[g * lay.ald + j] = from_f<CT>(pv);
+    }
+    __syncthreads();
+    if constexpr (kTC) {
+      const unsigned char* vt = raw;
+      int vrs = lay.rs;
+      if constexpr (kQuant) {
+        __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem + lay.o_conv);
+        dequant_tile<kTile>(raw, scl, lay.rs, conv, lay.cld, D);
+        __syncthreads();
+        vt = reinterpret_cast<const unsigned char*>(conv);
+        vrs = lay.cld * 2;
+      }
+      // Warp w owns the (m16, n8) output tiles w, w + 8, ...: O (16 x 8)
+      // += P (16 x 16 slots) V (16 slots x 8), k-steps in slot order; each
+      // lane's four sums live in shared memory between tiles.
+#pragma unroll 1
+      for (int pi = warp; pi < pairs; pi += kWarps) {
+        const int mt = pi / n_nt, nt = pi - mt * n_nt;
+        float4* a4 = reinterpret_cast<float4*>(acc_s) + pi * 32 + lane;
+        const float4 c4 = *a4;
+        float cacc[4] = {c4.x, c4.y, c4.z, c4.w};
+        for (int kt = 0; kt < kTile / 16; ++kt) {
+          uint32_t af[4], bf[2];
+          ldsm_x4(af, p_s + (mt * 16 + (lane & 15)) * lay.ald + kt * 16 + (lane >> 4) * 8);
+          ldsm_x2_trans(bf, vt + (kt * 16 + (lane & 15)) * vrs + nt * 16);
+          mma_bf16(cacc, af, bf);
+        }
+        *a4 = make_float4(cacc[0], cacc[1], cacc[2], cacc[3]);
+      }
+    } else {
+      // One thread per (q head, d) output, slots in order.
+#pragma unroll 1
+      for (int o = tid; o < G * D; o += kThreads) {
+        const int g = o / D, d = o - g * D;
+        const CT* pg = p_s + g * lay.ald;
+        float s = acc_s[o];
+#pragma unroll 1
+        for (int j = 0; j < kTile; ++j) {
+          const TC* vr = reinterpret_cast<const TC*>(raw + j * lay.rs);
+          s = fmaf(pg[j], cache_val<TA>(vr[d], kQuant ? scl[j] : 1.f), s);
+        }
+        acc_s[o] = s;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 5. The chunk's partial, then the group's sum in chunk order by its last
+  //    CTA, every load of a thread's outputs in flight at once.
+  float* part = p.part + (grp * NS + c) * G * D;
+  if constexpr (kTC) {
+#pragma unroll 1
+    for (int i = tid; i < pairs * 32; i += kThreads) {
+      const int pi = i >> 5, ln = i & 31, mt = pi / n_nt, nt = pi - mt * n_nt;
+      const float4 c4 = reinterpret_cast<const float4*>(acc_s)[i];
+      const float r[4] = {c4.x, c4.y, c4.z, c4.w};
+      for (int k = 0; k < 4; ++k) {
+        const int g = mt * 16 + (ln >> 2) + (k >> 1) * 8;
+        const int d = nt * 8 + (ln & 3) * 2 + (k & 1);
+        if (g < G) part[g * D + d] = r[k];
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int o = tid; o < G * D; o += kThreads) part[o] = acc_s[o];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(p.tickets + p.B * K + grp, 1) == NS - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const float* part0 = p.part + grp * NS * G * D;
+  const size_t out0 = head0 * D;
+  const int n = G * D, stride = G * D;
+  // Thread t adds columns t and t + kThreads (float4 where G * D allows),
+  // four chunks' loads in flight for both before any add.
+  const bool vec4 = (n & 3) == 0;
+  const int cols = vec4 ? n / 4 : n;
+#pragma unroll 1
+  for (int o = tid; o < cols; o += 2 * kThreads) {
+    const int o2 = o + kThreads;
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+#pragma unroll 1
+    for (int c0 = 0; c0 < NS; c0 += 4) {
+      float4 v0[4], v1[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v0[u] = v1[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c0 + u < NS) {
+          const float* src = part0 + (c0 + u) * stride;
+          if (vec4) {
+            v0[u] = __ldcg(reinterpret_cast<const float4*>(src) + o);
+            if (o2 < cols) v1[u] = __ldcg(reinterpret_cast<const float4*>(src) + o2);
+          } else {
+            v0[u].x = __ldcg(src + o);
+            if (o2 < cols) v1[u].x = __ldcg(src + o2);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c0 + u < NS) {
+          s0.x += v0[u].x; s0.y += v0[u].y; s0.z += v0[u].z; s0.w += v0[u].w;
+          s1.x += v1[u].x; s1.y += v1[u].y; s1.z += v1[u].z; s1.w += v1[u].w;
+        }
+      }
+    }
+    const float r[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll 1
+    for (int k = 0; k < (vec4 ? 8 : 2); ++k) {
+      const int col = k < (vec4 ? 4 : 1) ? o : o2;
+      if (col >= cols) continue;
+      const int at = vec4 ? 4 * col + (k & 3) : col;
+      const float v = vec4 ? r[k] : r[k * 4];
+      if constexpr (kShard) {
+        static_cast<float*>(p.out)[out0 + at] = v;
+      } else {
+        static_cast<TA*>(p.out)[out0 + at] = from_f<TA>(v);
+      }
+    }
+  }
+}
+
+// An empty kernel: the launch floor of a grid, for timing only.
+__global__ void decode_attention_empty() {}
+
+// --------------------------------------------------------------------------
+// Launchers.
+// --------------------------------------------------------------------------
 enum Phase { kWhole, kShardScores, kShardPv };
 
-template <typename TA, typename TC, int kVec>
-int run_phase(Phase phase, const Args& a, cudaStream_t stream) {
-  int rc = 0;
-  if (phase != kShardPv) {
-    rc = launch_scores<TA, TC, kVec>(a, stream);
-    if (rc != 0) return rc;
+// Launch one pass: its dynamic shared memory allowed past 48 KB, the
+// largest shared-memory carveout asked for (the passes of a call run on
+// one SM configuration), and, with `pdl`, programmatically after the pass
+// before it on the stream.
+// The dynamic shared memory each (kernel, device) was last allowed, so a
+// launch sets a function attribute only when it needs more (the first
+// launch on a device also asks for the largest carveout).
+int set_attributes(const void* kernel, int smem) {
+  struct Entry {
+    const void* kernel;
+    int device, smem;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> lock(mu);
+  Entry* hit = nullptr;
+  for (Entry& x : seen) {
+    if (x.kernel == kernel && x.device == device) hit = &x;
   }
-  if (phase == kShardScores) {
-    return launch_stats(static_cast<const float*>(a.scratch), nullptr, a.stats_m,
-                        a.B * a.H, a.S, stream);
+  if (hit == nullptr) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    seen.push_back({kernel, device, 48 * 1024});
+    hit = &seen.back();
   }
-  if (phase == kShardPv) return launch_pv<TA, TC, kVec, true>(a, stream);
-  return launch_pv<TA, TC, kVec, false>(a, stream);
+  if (smem > hit->smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    hit->smem = smem;
+  }
+  return 0;
 }
 
+template <typename... Args>
+int launch_pass(void (*kernel)(Args...), dim3 grid, int smem, cudaStream_t stream, bool pdl,
+                Args... args) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = set_attributes(reinterpret_cast<const void*>(kernel), smem);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_stats(const Params& p, int max_pass, int shard, bool pdl, cudaStream_t stream) {
+  return launch_pass(decode_attention_stats, dim3(p.B, p.K, max_pass ? 1 : p.nsplit), 0, stream,
+                     pdl, p, max_pass, shard);
+}
+
+// The whole call: scores, (stats,) p@V, each later pass launched
+// programmatically.  A shard's passes: scores and max, or p@V alone.
+template <typename TA, typename TC, bool kTC, bool kAsync>
+int run_phase(Phase phase, Params p, cudaStream_t stream) {
+  using L = Layout<TA, TC, kTC>;
+  const dim3 grid(p.B, p.K, p.nsplit);
+  p.fold = phase == kWhole && fold_stats(p.G, p.S, p.nsplit);
+  int rc = 0;
+  if (phase != kShardPv) {
+    rc = launch_pass(decode_attention_scores<TA, TC, kTC, kAsync>, grid,
+                     L(p.G, p.D, false).bytes, stream, false, p);
+    if (rc != 0) return rc;
+  }
+  if (phase == kShardScores) return launch_stats(p, 1, 1, false, stream);
+  const int smem = L(p.G, p.D, true, p.S, p.nsplit, p.fold != 0).bytes;
+  if (phase == kShardPv) {
+    return launch_pass(decode_attention_pv<TA, TC, kTC, kAsync, true>, grid, smem, stream, false,
+                       p);
+  }
+  if (!p.fold) {
+    rc = launch_stats(p, 0, 0, true, stream);
+    if (rc != 0) return rc;
+  }
+  return launch_pass(decode_attention_pv<TA, TC, kTC, kAsync, false>, grid, smem, stream, true,
+                     p);
+}
+
+// The build: tensor cores for bf16 activations whose head dim is a whole
+// number of k16 steps (unless `cuda_cores` asks for the other build), CUDA
+// cores otherwise; 16-byte cp.async where every cache row starts on a
+// 16-byte boundary, one-element loads otherwise.  From dtypes, shapes and
+// addresses only.
 template <typename TA, typename TC>
-int launch(Phase phase, const Args& a, void* stream) {
-  // 16-byte cache loads where every row starts on a 16-byte boundary.
-  constexpr int kVec = 16 / sizeof(TC);
-  const bool vec = (static_cast<size_t>(a.D) * sizeof(TC)) % 16 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(a.k_cache) |
-                     reinterpret_cast<uintptr_t>(a.v_cache)) & 15) == 0;
+int launch(Phase phase, const Params& p, int cuda_cores, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (vec) return run_phase<TA, TC, kVec>(phase, a, s);
-  return run_phase<TA, TC, 1>(phase, a, s);
+  const bool vec = (static_cast<size_t>(p.D) * sizeof(TC)) % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(p.k_cache) |
+                     reinterpret_cast<uintptr_t>(p.v_cache)) & 15) == 0;
+  if constexpr (std::is_same<TA, __nv_bfloat16>::value) {
+    if (!cuda_cores && p.D % 16 == 0) {
+      return vec ? run_phase<TA, TC, true, true>(phase, p, s)
+                 : run_phase<TA, TC, true, false>(phase, p, s);
+    }
+  }
+  return vec ? run_phase<TA, TC, false, true>(phase, p, s)
+             : run_phase<TA, TC, false, false>(phase, p, s);
+}
+
+// Fill the workspace pointers of `p` from `work` (`work_bytes` long).
+bool carve(Params& p, void* work, long long work_bytes) {
+  const Workspace w(p.B, p.K, p.G, p.D, p.S, p.nsplit);
+  if (work == nullptr || static_cast<long long>(w.bytes) > work_bytes) return false;
+  auto* base = static_cast<unsigned char*>(work);
+  p.scores = reinterpret_cast<float*>(base + w.scores);
+  p.cmax = reinterpret_cast<float*>(base + w.cmax);
+  p.psum = reinterpret_cast<float*>(base + w.psum);
+  p.tickets = reinterpret_cast<int*>(base + w.tickets);
+  p.part = reinterpret_cast<float*>(base + w.part);
+  if (p.m == nullptr) p.m = reinterpret_cast<float*>(base + w.m);
+  if (p.s == nullptr) p.s = reinterpret_cast<float*>(base + w.s);
+  return true;
+}
+
+Params make_params(int B, int S, int ldb, int slot_base, int S_total, int H, int K, int D,
+                   int W, int window, int is_ring, int chunk) {
+  Params p{};
+  p.B = B;
+  p.S = S;
+  p.ldb = ldb;
+  p.slot_base = slot_base;
+  p.S_total = S_total;
+  p.H = H;
+  p.K = K;
+  p.G = H / K;
+  p.D = D;
+  p.W = W;
+  p.window = window;
+  p.is_ring = is_ring;
+  p.chunk = chunk;
+  p.nsplit = (S + chunk - 1) / chunk;
+  return p;
 }
 
 }  // namespace
 
 // Plain C entry points, one set per (activation, cache) dtype pair; each
-// launches on `stream` and returns cudaGetLastError() (0 on success).
-//   NAME: the whole call, both kernels, the scores over `nsplit` chunks;
-//   NAME_shard_scores: kernel A on a slot shard and the local max of each
-//     score row into m_out (B, H);
-//   NAME_shard_pv: kernel B on a slot shard under the global max m and sum
-//     s, the f32 partial p@V into out (B, H, D).
+// launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue when `work` is shorter than the shapes need
+// (`Workspace`).  `chunk` is split_plan's chunk,
+// `cuda_cores` 1 runs a bf16 call on the CUDA-core build.
+//   NAME: the whole call, two or three launches;
+//   NAME_shard_scores: the scores pass on a slot shard and the local max of
+//     each score row into m_out (B, H);
+//   NAME_shard_pv: p@V on a slot shard under the global max m and sum s,
+//     the f32 partial into out (B, H, D).
 // decode_attention_shard_sum (dtype-free) takes the local softmax sums.
-#define DECODE_ATTENTION_ENTRY(NAME, TA, TC)                                          \
-  extern "C" int NAME(const void* q, const void* k_new, const void* v_new,            \
-                      void* k_cache, void* v_cache, void* k_scale, void* v_scale,     \
-                      const void* lens, const void* cos_b, const void* sin_b,         \
-                      void* out, void* scratch, int B, int S, int H, int K, int D,    \
-                      int W, int window, int is_ring, int nsplit, void* stream) {     \
-    const Args a{q,       k_new,   v_new,   k_cache, v_cache, k_scale, v_scale,       \
-                 lens,    cos_b,   sin_b,   out,     scratch, nullptr, nullptr,       \
-                 B,       S,       S,       0,       S,       H,       K,             \
-                 D,       W,       window,  is_ring, nsplit};                         \
-    return launch<TA, TC>(kWhole, a, stream);                                         \
-  }                                                                                   \
-  extern "C" int NAME##_shard_scores(                                                 \
-      const void* q, const void* k_new, const void* v_new, void* k_cache,             \
-      void* v_cache, void* k_scale, void* v_scale, const void* lens,                  \
-      const void* cos_b, const void* sin_b, void* m_out, void* scratch, int B, int S, \
-      int ldb, int slot_base, int S_total, int H, int K, int D, int W, int window,    \
-      int is_ring, int nsplit, void* stream) {                                        \
-    const Args a{q,       k_new,     v_new,   k_cache, v_cache,                       \
-                 k_scale, v_scale,   lens,    cos_b,   sin_b,                         \
-                 nullptr, scratch,   static_cast<float*>(m_out), nullptr,             \
-                 B,       S,         ldb,     slot_base, S_total,                     \
-                 H,       K,         D,       W,       window,                        \
-                 is_ring, nsplit};                                                    \
-    return launch<TA, TC>(kShardScores, a, stream);                                   \
-  }                                                                                   \
-  extern "C" int NAME##_shard_pv(void* k_cache, void* v_cache, void* v_scale,         \
-                                 const void* lens, void* out, void* scratch,          \
-                                 void* m, void* s, int B, int S, int ldb,             \
-                                 int slot_base, int S_total, int H, int K, int D,     \
-                                 void* stream) {                                      \
-    const Args a{nullptr, nullptr,  nullptr, k_cache, v_cache,                        \
-                 nullptr, v_scale,  lens,    nullptr, nullptr,                        \
-                 out,     scratch,  static_cast<float*>(m), static_cast<float*>(s),   \
-                 B,       S,        ldb,     slot_base, S_total,                      \
-                 H,       K,        D,       0,       0,                              \
-                 0,       0};                                                         \
-    return launch<TA, TC>(kShardPv, a, stream);                                       \
+#define DECODE_ATTENTION_ENTRY(NAME, TA, TC)                                                \
+  extern "C" int NAME(const void* q, const void* k_new, const void* v_new, void* k_cache,   \
+                      void* v_cache, void* k_scale, void* v_scale, const void* lens,        \
+                      const void* cos_b, const void* sin_b, void* out, void* work,          \
+                      long long work_bytes, int B, int S, int H, int K, int D, int W,       \
+                      int window, int is_ring, int chunk, int cuda_cores, void* stream) {   \
+    Params p = make_params(B, S, S, 0, S, H, K, D, W, window, is_ring, chunk);              \
+    p.q = q; p.k_new = k_new; p.v_new = v_new; p.k_cache = k_cache; p.v_cache = v_cache;    \
+    p.k_scale = static_cast<float*>(k_scale); p.v_scale = static_cast<float*>(v_scale);     \
+    p.lens = static_cast<const int*>(lens);                                                 \
+    p.cos_b = static_cast<const float*>(cos_b); p.sin_b = static_cast<const float*>(sin_b); \
+    p.out = out;                                                                            \
+    if (!carve(p, work, work_bytes)) return static_cast<int>(cudaErrorInvalidValue);        \
+    return launch<TA, TC>(kWhole, p, cuda_cores, stream);                                   \
+  }                                                                                         \
+  extern "C" int NAME##_shard_scores(                                                       \
+      const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,    \
+      void* k_scale, void* v_scale, const void* lens, const void* cos_b, const void* sin_b, \
+      void* m_out, void* work, long long work_bytes, int B, int S, int ldb, int slot_base,  \
+      int S_total, int H, int K, int D, int W, int window, int is_ring, int chunk,          \
+      int cuda_cores, void* stream) {                                                       \
+    Params p = make_params(B, S, ldb, slot_base, S_total, H, K, D, W, window, is_ring,      \
+                           chunk);                                                          \
+    p.q = q; p.k_new = k_new; p.v_new = v_new; p.k_cache = k_cache; p.v_cache = v_cache;    \
+    p.k_scale = static_cast<float*>(k_scale); p.v_scale = static_cast<float*>(v_scale);     \
+    p.lens = static_cast<const int*>(lens);                                                 \
+    p.cos_b = static_cast<const float*>(cos_b); p.sin_b = static_cast<const float*>(sin_b); \
+    p.m_out = static_cast<float*>(m_out);                                                   \
+    if (!carve(p, work, work_bytes)) return static_cast<int>(cudaErrorInvalidValue);        \
+    return launch<TA, TC>(kShardScores, p, cuda_cores, stream);                             \
+  }                                                                                         \
+  extern "C" int NAME##_shard_pv(void* k_cache, void* v_cache, void* v_scale,               \
+                                 const void* lens, void* out, void* work,                   \
+                                 long long work_bytes, void* m, void* s, int B, int S,      \
+                                 int ldb, int slot_base, int S_total, int H, int K, int D,  \
+                                 int window, int chunk, int cuda_cores, void* stream) {     \
+    Params p = make_params(B, S, ldb, slot_base, S_total, H, K, D, 0, window, 0, chunk);    \
+    p.k_cache = k_cache; p.v_cache = v_cache; p.v_scale = static_cast<float*>(v_scale);     \
+    p.lens = static_cast<const int*>(lens); p.out = out;                                    \
+    p.m = static_cast<float*>(m); p.s = static_cast<float*>(s);                             \
+    if (!carve(p, work, work_bytes)) return static_cast<int>(cudaErrorInvalidValue);        \
+    return launch<TA, TC>(kShardPv, p, cuda_cores, stream);                                 \
   }
 
 DECODE_ATTENTION_ENTRY(decode_attention_f32, float, float)
@@ -553,8 +1403,25 @@ DECODE_ATTENTION_ENTRY(decode_attention_bf16, __nv_bfloat16, __nv_bfloat16)
 DECODE_ATTENTION_ENTRY(decode_attention_q8_f32, float, int8_t)
 DECODE_ATTENTION_ENTRY(decode_attention_q8_bf16, __nv_bfloat16, int8_t)
 
-extern "C" int decode_attention_shard_sum(const void* scratch, const void* m, void* out,
-                                          int rows, int S, void* stream) {
-  return launch_stats(static_cast<const float*>(scratch), static_cast<const float*>(m),
-                      static_cast<float*>(out), rows, S, static_cast<cudaStream_t>(stream));
+extern "C" int decode_attention_shard_sum(void* work, long long work_bytes, void* m,
+                                          void* s_out, const void* lens, int B, int S,
+                                          int slot_base, int S_total, int H, int K, int D,
+                                          int window, int chunk, void* stream) {
+  Params p = make_params(B, S, S, slot_base, S_total, H, K, D, 0, window, 0, chunk);
+  p.lens = static_cast<const int*>(lens);
+  p.m = static_cast<float*>(m);
+  p.s_out = static_cast<float*>(s_out);
+  if (!carve(p, work, work_bytes)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stats(p, 0, 1, false, static_cast<cudaStream_t>(stream));
+}
+
+// `launches` launches of an empty kernel on the grid (B, K, nsplit) of
+// kThreads threads: the launch floor of the passes, for timing.
+extern "C" int decode_attention_empty_grid(int B, int K, int nsplit, int launches,
+                                           void* stream) {
+  for (int i = 0; i < launches; ++i) {
+    decode_attention_empty<<<dim3(B, K, nsplit), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>();
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -11,23 +11,31 @@ The caches are updated in place, the counterpart of the reference's
 Two implementations of the same function live here:
 
   * the CUDA C++ kernels ``csrc/decode_attention.cu`` for ``sm_90a``, two
-    launches per call on the caller's stream.  Kernel A, on a
-    (B, K, NSPLIT) grid, ropes q, writes the new token (in the one CTA
-    whose chunk of slots holds it) and scores its chunk of slots into an
-    f32 scratch; kernel B, one CTA per q head, takes the softmax over the
-    whole score row and p@V.  NSPLIT comes from the shapes alone
-    (``split_plan``), so nothing is read back from the card.  At the
-    serving shape the step is bound by latency and by how many SMs it
-    keeps busy, not by bytes; the source note says what the split does
-    about it;
+    or three launches per call on the caller's stream, each on a (B, K,
+    NSPLIT) grid: one CTA per (batch row, kv head, chunk of slots) holding
+    all G q heads of its group, so every K and V element is read once per
+    call.  The scores pass ropes q, writes the new token (in the one CTA
+    whose chunk holds it), and scores its chunk into an f32 scratch with
+    each chunk's row maxima; the softmax's sums are taken per chunk and
+    added in chunk order, by a stats pass or, for small row groups
+    (``fold_stats``), by every CTA of the p@V pass; the p@V pass writes
+    f32 partials per chunk, which the group's last CTA sums in chunk order
+    and casts once.  The later passes launch programmatically after the
+    first.
+    bf16 activations whose head dim is a multiple of 16 run both products
+    on the tensor cores, others on CUDA cores; tiles are staged through a
+    ring of shared-memory stages by ``cp.async``.  NSPLIT and the chunk come
+    from the shapes alone (``split_plan``), so nothing is read back from
+    the card; the source note says what bounds the step and what the
+    design does about it;
   * ``decode_attention_plain``, plain PyTorch that follows the reference's
     ``_decode_kernel`` step for step.  The CPU tests hold it against the
     reference, and the chip smoke run holds the kernels against it.
 
 ``fused_decode_attention`` takes the plain version only for tensors that
 lie on the CPU; CUDA tensors go to the kernels or raise.  Every call that
-launches them adds one to ``LAUNCHES`` (one call, two launches), so a
-serving run counts one per attention layer and decode step.
+launches them adds one to ``LAUNCHES`` (one call, two or three launches),
+so a serving run counts one per attention layer and decode step.
 
 The slot-shard form, ``decode_attention_shard`` (and its plain version
 ``decode_attention_shard_plain``), is the same step on one device's block
@@ -46,7 +54,9 @@ sum, p@V); an empty block launches none and counts nothing.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -68,34 +78,125 @@ _ENTRIES = {
     (torch.float32, torch.int8): "decode_attention_q8_f32",
     (torch.bfloat16, torch.int8): "decode_attention_q8_bf16",
 }
-_MAX_HEAD_DIM = 256          # kMaxHeadDim in the kernels
+_MAX_HEAD_DIM = 256          # the largest head dim the kernels take
+_MAX_G = 64                  # q heads per kv head the kernels take (kMaxG)
 _MAX_SMEM = 227 * 1024       # shared memory one Hopper CTA may use
-_STAGE = 32                  # K rows kernel A stages at a time (kStage)
-_MIN_CHUNK = 8               # about the fewest slots worth a CTA of kernel A
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_SCORES_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
-                    + [ctypes.c_void_p])
-_PV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SUM_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_STAGES = 3                  # K tiles in a scores CTA's ring (kStages)
+_STAGES_PV = 2               # V tiles in a p@V CTA's ring (kStagesPV)
+_FOLD_BYTES = 16 * 1024      # kFoldBytes: see fold_stats
+_TILE = 64                   # slots per tile on tensor cores (kTileTC); chunks
+                             # are whole tiles
+_TILE_CC = 32                # slots per tile on CUDA cores (kTileCC)
+_CTAS_PER_SM = 4             # CTAs per SM split_plan aims for
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 10
+             + [ctypes.c_void_p])
+_SCORES_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+_PV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+_SUM_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+#: True inside ``cuda_core_build()``: bf16 calls take the CUDA-core build.
+_CUDA_CORES = False
 
 
 def split_plan(batch: int, kv_heads: int, slots: int,
                sms: int) -> tuple[int, int]:
-    """``(nsplit, chunk)``: how kernel A cuts the slot axis on a card of
-    ``sms`` SMs.
+    """``(nsplit, chunk)``: how every pass of the kernels cuts the slot axis
+    on a card of ``sms`` SMs.
 
     From shapes alone, never from the row lengths (reading them would sync
-    the stream): about one CTA per SM over the ``batch * kv_heads`` groups,
-    but no more than ``ceil(slots / _MIN_CHUNK)`` chunks.  ``chunk =
-    ceil(slots / nsplit)``, as the kernel derives it from its grid, and no
-    chunk is empty.
+    the stream): about ``_CTAS_PER_SM`` CTAs per SM over the ``batch *
+    kv_heads`` groups, however many groups there are, in chunks of whole
+    ``_TILE``-slot tiles (so never less than a tile's worth of slots, where
+    a CTA's fixed cost outweighs its slots).  ``nsplit = ceil(slots /
+    chunk)``, and no chunk is empty.
     """
     if min(batch, kv_heads, slots, sms) < 1:
         raise ValueError(f"no split of batch={batch}, kv_heads={kv_heads}, "
                          f"slots={slots} on {sms} SMs")
-    want = min(-(-slots // _MIN_CHUNK), max(1, sms // (batch * kv_heads)))
-    chunk = -(-slots // want)
+    tiles = -(-slots // _TILE)
+    want = -(-(_CTAS_PER_SM * sms) // (batch * kv_heads))
+    chunk = -(-tiles // min(want, tiles)) * _TILE
     return -(-slots // chunk), chunk
+
+
+def tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a call of activation ``dtype`` and ``head_dim`` runs on the
+    tensor-core build (bf16, whole k16 steps), as the kernels choose it:
+    from dtype and shape only (``cuda_core_build()`` asks for the other)."""
+    return (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and not _CUDA_CORES)
+
+
+@contextlib.contextmanager
+def cuda_core_build():
+    """Run the bf16 calls made inside on the kernels' CUDA-core build, so
+    that both builds can be held against the plain version on the card."""
+    global _CUDA_CORES
+    before, _CUDA_CORES = _CUDA_CORES, True
+    try:
+        yield
+    finally:
+        _CUDA_CORES = before
+
+
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def fold_stats(g: int, slots: int, nsplit: int) -> bool:
+    """Whether a whole call folds the softmax's statistics into its p@V
+    pass (two launches; ``fold_stats`` in the kernels): a row group's
+    scores and chunk maxima fit in ``_FOLD_BYTES`` of shared memory."""
+    return (g * slots + nsplit * g) * 4 <= _FOLD_BYTES
+
+
+def smem_bytes(g: int, d: int, act_size: int, cache_size: int, *, tc: bool,
+               pv: bool, slots: int = 0, nsplit: int = 0,
+               fold: bool = False) -> int:
+    """Dynamic shared memory of one CTA of the scores pass (``pv`` False)
+    or the p@V pass, as the kernels lay it out (``Layout``): the q heads or
+    the p tile; the scores pass's inputs (q rows, k_new, v_new, cos, sin)
+    or the p@V pass's new v row; a ring of cache tiles (``_STAGES``,
+    ``_STAGES_PV`` for p@V; rows padded by 16 bytes), int8 scales and the
+    bf16 tile they dequantise into; the new token's k row, or the p@V
+    pass's staged scores (folded: the chunk maxima, the group's rows of
+    ``slots`` scores and the chunk sums; else score tiles) and its f32
+    sums; the row statistics."""
+    tile = _TILE if tc else _TILE_CC
+    rows = _up(g, 16) if tc else g
+    ald = (tile + 8 if tc else tile) if pv else (d + 8 if tc else d + 1)
+    quant = cache_size == 1
+    stages = _STAGES_PV if pv else _STAGES
+    n = _up(rows * ald * (2 if tc else 4), 16)
+    if pv:
+        n += _up(d * cache_size, 16) + 16
+    else:
+        n += (_up(g * d * act_size, 16) + 2 * _up(d * act_size, 16)
+              + 2 * _up(d // 2 * 4, 16))
+    n += stages * tile * (_up(d * cache_size, 16) + 16)
+    n += stages * tile * 4 if quant else 0
+    n += tile * (d + 8) * 2 if tc and quant else 0
+    if pv:
+        x = 2 * nsplit * g + g * slots if fold else _STAGES_PV * g * tile
+        n += _up(x * 4, 16) + rows * d * 4
+    else:
+        n += _up(d * cache_size, 16)
+    return n + (2 * rows * 4 if pv else 8 * rows * 4)
+
+
+def workspace_bytes(batch: int, kv_heads: int, g: int, d: int, slots: int,
+                    chunk: int) -> int:
+    """Bytes of one call's (or one block's) workspace, as the kernels
+    carve it (``Workspace``, which refuses a shorter one):
+    scores (B, K, G, S), chunk maxima and sums (B, K, NSPLIT, G), the
+    whole call's max and sum (B, H), tickets (2, B*K), p@V partials
+    (B, K, NSPLIT, G, D); f32 and int32, each part on 256 bytes."""
+    rows, ns = batch * kv_heads * g, -(-slots // chunk)
+    return sum(_up(n * 4, 256) for n in (rows * slots, rows * ns, rows * ns,
+                                         rows, rows, 2 * batch * kv_heads,
+                                         rows * ns * d))
 
 
 def pick_chunk(slots: int) -> int:
@@ -392,13 +493,30 @@ def _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
         raise ValueError(f"rope width 2*W={2 * w} must be in (0, D={d}]")
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}")
-    if (h // kh + _STAGE) * (d + 1) * 4 > _MAX_SMEM:
-        raise ValueError(f"(G + {_STAGE}) * (D + 1) = "
-                         f"{(h // kh + _STAGE) * (d + 1)} floats exceed "
-                         "shared memory")
+    if h // kh > _MAX_G:
+        raise ValueError(f"{h // kh} q heads per kv head > {_MAX_G}")
     if window < 0:
         raise ValueError("window must be >= 0")
     return _batch_stride(caches) if shard else slots
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(batch: int, kv_heads: int, g: int, d: int, slots: int,
+          act_size: int, cache_size: int, tc: bool, sms: int,
+          shard: bool) -> tuple[int, int]:
+    """``(chunk, workspace bytes)`` of a call (or a shard's block) of these
+    shapes on a card of ``sms`` SMs; raises where a CTA's shared memory
+    would exceed a Hopper CTA's.  Shapes only, so cached."""
+    nsplit, chunk = split_plan(batch, kv_heads, max(slots, 1), sms)
+    fold = not shard and fold_stats(g, slots, nsplit)
+    smem = max(smem_bytes(g, d, act_size, cache_size, tc=tc, pv=pv,
+                          slots=slots, nsplit=nsplit, fold=fold)
+               for pv in (False, True))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{smem} B of shared memory per CTA exceed "
+                         f"{_MAX_SMEM}")
+    return chunk, (workspace_bytes(batch, kv_heads, g, d, slots, chunk)
+                   if slots else 0)
 
 
 def _entry(name: str, argtypes):
@@ -420,24 +538,25 @@ def _called(rc: int, what: str) -> None:
 def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
             v_scale, window: int, is_ring: bool) -> torch.Tensor:
     global LAUNCHES
-    _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
-           v_scale, window)
     b, _, h, d = q.shape
     slots, kh = k_cache.shape[1], k_cache.shape[2]
-    fn = _entry(_ENTRIES[(q.dtype, k_cache.dtype)], _ARGTYPES)
-    out = torch.empty_like(q)
-    scratch = torch.empty((b, kh, h // kh, slots), dtype=torch.float32,
-                          device=q.device)
+    _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
+           v_scale, window)
     # The SM count is cached by torch; reading it does not sync the stream.
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, _ = split_plan(b, kh, slots, sms)
+    chunk, nbytes = _plan(b, kh, h // kh, d, slots, q.element_size(),
+                          k_cache.element_size(), tensor_cores(q.dtype, d),
+                          sms, False)
+    fn = _entry(_ENTRIES[(q.dtype, k_cache.dtype)], _ARGTYPES)
+    out = torch.empty_like(q)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_cache),
                 _ptr(v_cache), _ptr(k_scale), _ptr(v_scale), _ptr(lens),
-                _ptr(cos), _ptr(sin), _ptr(out), _ptr(scratch), b, slots, h,
-                kh, d, cos.shape[-1], int(window), int(bool(is_ring)),
-                nsplit, stream)
+                _ptr(cos), _ptr(sin), _ptr(out), _ptr(work), nbytes, b,
+                slots, h, kh, d, cos.shape[-1], int(window),
+                int(bool(is_ring)), chunk, int(_CUDA_CORES), stream)
     _called(rc, "kernel")
     LAUNCHES += 1
     return out
@@ -453,7 +572,7 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     pre-write lengths, an int or (B,) int32; cos/sin (B,...,W) f32.  Plain
     caches return ``(out, k_cache, v_cache)`` and quantised caches also the
     scales, all updated in place.  CPU tensors run the plain version; CUDA
-    tensors launch the two kernels (one count in ``LAUNCHES``).
+    tensors launch the three kernels (one count in ``LAUNCHES``).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
@@ -475,9 +594,10 @@ def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
                         sin, k_scale, v_scale, *, slot_base, slots, window,
                         is_ring):
     """The slot-shard form on the card, as a generator like
-    :func:`_softmax_pv`: kernel A and the local max, the local sum under
-    the reduced max, the f32 partial p@V under the reduced max and sum.
-    A block that launched its kernels adds one to ``SHARD_LAUNCHES``."""
+    :func:`_softmax_pv`: the scores pass and the local max, the local sum
+    under the reduced max, the f32 partial p@V under the reduced max and
+    sum.  A block that launched its kernels adds one to
+    ``SHARD_LAUNCHES``."""
     global SHARD_LAUNCHES
     b, _, h, d = q.shape
     block, kh = k_cache.shape[1], k_cache.shape[2]
@@ -487,12 +607,16 @@ def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     sin2 = sin.to(torch.float32).reshape(b, w).contiguous()
     ldb = _check(q, k_new, v_new, k_cache, v_cache, lens, cos2, sin2,
                  k_scale, v_scale, window, shard=True)
+    # The SM count is cached by torch; reading it does not sync the stream.
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk, nbytes = _plan(b, kh, h // kh, d, block, q.element_size(),
+                          k_cache.element_size(), tensor_cores(q.dtype, d),
+                          sms, True)
     if not 0 <= slot_base <= slot_base + block <= slots:
         raise ValueError(f"block of {block} slots from {slot_base} is not "
                          f"inside a cache of {slots}")
     f32 = dict(dtype=torch.float32, device=q.device)
     name = _ENTRIES[(q.dtype, k_cache.dtype)]
-    scratch = torch.empty((b, kh, h // kh, block), **f32)
     if block:      # the kernels write every element
         local_max, local_sum, part = (torch.empty(shape, **f32) for shape in
                                       ((b, h), (b, h), (b, h, d)))
@@ -500,6 +624,8 @@ def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
         local_max = torch.full((b, h), -math.inf, **f32)
         local_sum, part = torch.zeros((b, h), **f32), torch.zeros((b, h, d),
                                                                   **f32)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    cores = int(_CUDA_CORES)
 
     def launch(entry, argtypes, what, *args):
         if not block:
@@ -508,23 +634,21 @@ def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
             stream = torch.cuda.current_stream(q.device).cuda_stream
             _called(_entry(entry, argtypes)(*args, stream), what)
 
-    # The SM count is cached by torch; reading it does not sync the stream.
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, _ = split_plan(b, kh, max(block, 1), sms)
     launch(name + "_shard_scores", _SCORES_ARGTYPES, "shard scores",
            _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_cache), _ptr(v_cache),
            _ptr(k_scale), _ptr(v_scale), _ptr(lens), _ptr(cos2), _ptr(sin2),
-           _ptr(local_max), _ptr(scratch), b, block, ldb, slot_base, slots, h,
-           kh, d, w, int(window), int(bool(is_ring)), nsplit)
+           _ptr(local_max), _ptr(work), nbytes, b, block, ldb, slot_base,
+           slots, h, kh, d, w, int(window), int(bool(is_ring)), chunk, cores)
     m = (yield "max", local_max).to(torch.float32).contiguous()
     launch("decode_attention_shard_sum", _SUM_ARGTYPES, "shard sum",
-           _ptr(scratch), _ptr(m), _ptr(local_sum), b * h, block)
+           _ptr(work), nbytes, _ptr(m), _ptr(local_sum), _ptr(lens), b,
+           block, slot_base, slots, h, kh, d, int(window), chunk)
     total = (yield "sum", local_sum).to(torch.float32).contiguous()
     launch(name + "_shard_pv", _PV_ARGTYPES, "shard p@V", _ptr(k_cache),
-           _ptr(v_cache), _ptr(v_scale), _ptr(lens), _ptr(part),
-           _ptr(scratch), _ptr(m), _ptr(total), b, block, ldb, slot_base,
-           slots, h, kh, d)
-    if block:      # all three launches returned; an empty block made none
+           _ptr(v_cache), _ptr(v_scale), _ptr(lens), _ptr(part), _ptr(work),
+           nbytes, _ptr(m), _ptr(total), b, block, ldb, slot_base, slots, h,
+           kh, d, int(window), chunk, cores)
+    if block:      # all three entries returned; an empty block made none
         SHARD_LAUNCHES += 1
     out = yield "sum", part
     return out.reshape(b, 1, h, d).to(q.dtype)
@@ -605,4 +729,7 @@ def decode_attention_over_shards(q, k_new, v_new, k_cache, v_cache, cache_len,
 __all__ = ["fused_decode_attention", "decode_attention_plain",
            "decode_attention_shard", "decode_attention_shard_plain",
            "decode_attention_over_shards", "shard_softmax_pv", "slot_blocks",
-           "live_slots", "pick_chunk", "quantize_kv", "split_plan", "NEG_INF"]
+           "live_slots", "pick_chunk", "quantize_kv", "split_plan",
+           "tensor_cores", "cuda_core_build", "fold_stats", "smem_bytes",
+           "workspace_bytes",
+           "NEG_INF"]

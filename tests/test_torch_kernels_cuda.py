@@ -7,10 +7,13 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
   * fused AdamW: m and v bit-exact, p within one ULP, on
     tests/test_kernels.py's cases;
   * decode attention: the serving shape with the new token on the first or
-    last slot of a chunk of the scores kernel's split, the cases that
-    take the kernels' scalar-load build (rows that are no multiple of 16
-    bytes, caches off a 16-byte boundary), and qwen3-moe's and zamba2's
-    streaming shapes: caches bit-exact, out within chip_smoke.py's ``TOL``;
+    last slot of a chunk of the kernels' split, the cases that take the
+    kernels' scalar-load build (rows that are no multiple of 16 bytes,
+    caches off a 16-byte boundary), and chatglm3-6b's, qwen3-moe's and
+    zamba2's streaming shapes and the G = 64 shape on both builds (tensor
+    cores, the default for bf16, and ``cuda_core_build()``): caches
+    bit-exact, out within chip_smoke.py's ``TOL``; a captured call
+    replayed twice, out and caches bit-equal across the calls;
   * the decode kernels' slot-shard form over P = 1, 2, 4 and 16 blocks of
     one cache (chip_smoke.py's ``SHARD_CASES``: the streaming shape with
     the new token on a block's edges, int8 and a ring, decode_32k's
@@ -39,6 +42,7 @@ machine that has only PyTorch and the CUDA toolkit:
 Every test needs a card and skips itself where there is none.
 """
 
+import contextlib
 import importlib.util
 from pathlib import Path
 
@@ -96,7 +100,7 @@ DECODE_CASES = [(c, 0) for c in SMOKE.EDGE_CASES] + SMOKE.SCALAR_LOAD_CASES
 def test_decode_attention_kernels_match_plain_version(card, case, offset):
     before = DA.LAUNCHES
     SMOKE.check_case(case, 0, card, offset)
-    assert DA.LAUNCHES == before + 1      # one count per call, two launches
+    assert DA.LAUNCHES == before + 1      # one count per call, 2-3 launches
 
 
 SHARD_PARAMS = [(c, p) for c in SMOKE.SHARD_CASES for p in SMOKE.SHARD_COUNTS]
@@ -155,6 +159,43 @@ def test_decode_attention_at_the_moe_and_hybrid_streaming_shapes(card, arch):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     for case in SMOKE.stream_cases(sms, arch):
         SMOKE.check_case(case, 0, card)
+
+
+# The streaming shapes of three archs, and chip_smoke.py's G = 64 shape.
+BUILD_SHAPES = [SMOKE.ARCH, SMOKE.MOE_ARCH, SMOKE.HYBRID_ARCH, "g64"]
+
+
+def _shape_cases(card, shape):
+    if shape == "g64":
+        return [SMOKE.BIG_SMEM_CASE]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    return SMOKE.stream_cases(sms, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BUILD_SHAPES)
+@pytest.mark.parametrize("build", ["tensor-cores", "cuda-cores"])
+def test_decode_attention_on_both_builds(card, build, shape):
+    """bf16 calls run on the tensor-core build unless
+    ``cuda_core_build()`` asks for the other; both against the plain
+    version at each shape, one count per call."""
+    with (DA.cuda_core_build() if build == "cuda-cores"
+          else contextlib.nullcontext()):
+        for case in _shape_cases(card, shape):
+            before = DA.LAUNCHES
+            SMOKE.check_case(case, 0, card)
+            assert DA.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SMOKE.ARCH, "g64"])
+def test_captured_decode_replays_are_bit_equal(card, shape):
+    """A captured call (chatglm3-6b's streaming shape, lens drawn; the
+    G = 64 shape) replayed twice from the same caches: out and caches
+    bit-equal to the first call's and the plain version's caches."""
+    case = _shape_cases(card, shape)[-1]
+    res = SMOKE.check_captured_kernel(card, case)
+    assert res["capture_s"] > 0
 
 
 @pytest.mark.cuda
