@@ -1,0 +1,3 @@
+"""One reader per metric, found by the metric's name: ``read(run)``
+returns the metric's value from ``harness.RunData``, or None where the run
+holds nothing to read."""
