@@ -38,6 +38,7 @@ class DispatchStats:
     seconds: float
     num_host_calls: int
     bytes_moved: int
+    t0: float = 0.0        # time.perf_counter() at the dispatch's start
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
@@ -106,7 +107,7 @@ class MulticastDispatcher:
             self.last_copy.synchronize()
         dt = time.perf_counter() - t0
         return out, DispatchStats(dt, num_host_calls=1,
-                                  bytes_moved=_leaf_bytes(tree))
+                                  bytes_moved=_leaf_bytes(tree), t0=t0)
 
 
 class SequentialDispatcher:
@@ -132,7 +133,7 @@ class SequentialDispatcher:
         out, n_calls = self.put_with_calls(tree, device)
         dt = time.perf_counter() - t0
         return out, DispatchStats(dt, num_host_calls=n_calls,
-                                  bytes_moved=_leaf_bytes(tree))
+                                  bytes_moved=_leaf_bytes(tree), t0=t0)
 
 
 def replicated_sharding(mesh) -> tuple:

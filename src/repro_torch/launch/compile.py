@@ -32,6 +32,14 @@ state donated, forward, backward, clipping and AdamW in one executable).  A
 ``disable_compile()`` is the counterpart of ``jax.disable_jit()``: inside
 it every ``CompiledStep`` calls its function on the caller's tensors, on
 the card too, so a compiled run can be held against an eager one.
+
+``marks``, a list or None (the default), times a call's phases on the
+host for a tracer: when it is a list, each call appends ``(phase, start,
+end, args)`` with ``time.perf_counter()`` readings, for ``copy_in`` (the
+key's look-up and the input-buffer copies), ``replay`` (the graph's
+replay, or the eager call on the CPU or under ``disable_compile()``) and
+``copy_out`` (the output clones); a key's first call is one ``capture``
+mark, with its ``capture_s``.  None reads no clock.
 """
 
 from __future__ import annotations
@@ -110,6 +118,7 @@ class CompiledStep:
         self.pool = pool
         self.name = name or getattr(fn, "__name__", "step")
         self._entries: dict[tuple, _Entry] = {}
+        self.marks: list | None = None
 
     def keys(self) -> list[tuple]:
         """The keys compiled so far, in the order of their first call."""
@@ -123,9 +132,7 @@ class CompiledStep:
     def stats(self) -> list[dict]:
         """Per key: capture seconds, pool growth, launches per replay and
         calls (the first one included)."""
-        return [{"step": self.name,
-                 "key": [k[1] if k[0] == "value" else list(k[0])
-                         for k in key[1]],
+        return [{"step": self.name, "key": _key_list(key),
                  "captured": e.graph is not None, "capture_s": e.capture_s,
                  "pool_bytes": e.pool_bytes, "calls": e.calls,
                  "launches_per_replay": {name: n for name, _, _, n
@@ -133,15 +140,26 @@ class CompiledStep:
                 for key, e in self._entries.items()]
 
     def __call__(self, *args):
+        marks = self.marks
+        t = time.perf_counter() if marks is not None else 0.0
         if _MODE.disabled:
-            return self.fn(*args)
+            out = self.fn(*args)
+            if marks is not None:
+                marks.append(("replay", t, time.perf_counter(),
+                              {"eager": True}))
+            return out
         static = [args[i] for i in self.static_argnums]
         leaves, spec = pytree.tree_flatten(
             [a for i, a in enumerate(args) if i not in self.static_argnums])
         key = (spec, tuple(_leaf_key(x) for x in leaves))
         entry = self._entries.get(key)
         if entry is None:
-            return self._first_call(key, static, leaves, spec)
+            out = self._first_call(key, static, leaves, spec)
+            if marks is not None:
+                marks.append(("capture", t, time.perf_counter(),
+                              {"key": _key_list(key),
+                               "capture_s": self._entries[key].capture_s}))
+            return out
         held = pytree.tree_leaves(static)
         if len(held) != len(entry.static_leaves) or any(
                 a is not b for a, b in zip(held, entry.static_leaves)):
@@ -152,12 +170,21 @@ class CompiledStep:
             if buf is not None:
                 buf.copy_(x)
         entry.calls += 1
+        if marks is not None:
+            t = _mark(marks, "copy_in", t)
         if entry.graph is None:
-            return self._copy_out(self.fn(*entry.args), entry)
-        entry.graph.replay()
-        for _, mod, attr, n in entry.launches:
-            setattr(mod, attr, getattr(mod, attr) + n)
-        return self._copy_out(entry.out, entry)
+            out = self.fn(*entry.args)
+        else:
+            entry.graph.replay()
+            for _, mod, attr, n in entry.launches:
+                setattr(mod, attr, getattr(mod, attr) + n)
+            out = entry.out
+        if marks is not None:
+            t = _mark(marks, "replay", t, {"key": _key_list(key)})
+        out = self._copy_out(out, entry)
+        if marks is not None:
+            _mark(marks, "copy_out", t)
+        return out
 
     def _first_call(self, key, static, leaves, spec):
         inputs = [torch.empty_like(x) if isinstance(x, torch.Tensor) else None
@@ -210,6 +237,19 @@ class CompiledStep:
         return pytree.tree_unflatten(
             [x.clone() if isinstance(x, torch.Tensor) and id(x) not in held
              else x for x in leaves], spec)
+
+
+def _key_list(key: tuple) -> list:
+    """A key's inputs as JSON: each tensor's shape, each value as is."""
+    return [k[1] if k[0] == "value" else list(k[0]) for k in key[1]]
+
+
+def _mark(marks: list, phase: str, t0: float, args: dict | None = None
+          ) -> float:
+    """Append ``phase`` from ``t0`` to now; returns now."""
+    t1 = time.perf_counter()
+    marks.append((phase, t0, t1, args))
+    return t1
 
 
 __all__ = ["CompiledStep", "disable_compile"]

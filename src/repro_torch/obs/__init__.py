@@ -1,9 +1,13 @@
 """Offload-aware observability: tracing + drift telemetry (DESIGN.md §9).
 
-A copy of ``repro/obs/__init__.py``; its results are bit-identical to the
-reference's on the same inputs.
+The port of ``repro/obs/__init__.py``: its results are bit-identical to
+the reference's on the same inputs, and it adds a host clock with an epoch
+(``tracer.Tracer.now``) on which a run with a real engine records its
+engine calls and batcher phases.
 
-    tracer.Tracer / tracer.NULL    -> span/instant/counter recorder; the
+    tracer.Tracer / tracer.NULL    -> span/instant/counter recorder with
+                                      a host clock (``now``) whose epoch
+                                      maps onto ``time.time_ns``; the
                                       shared no-op default keeps disabled
                                       tracing at one branch per event site
     export.write_chrome_trace      -> Perfetto-loadable Chrome Trace Event
@@ -16,7 +20,9 @@ reference's on the same inputs.
 
 Instrumented layers: ``core.engine`` (per-job dispatch/exec/sync phase
 spans, host vs fabric tracks), ``serve.batcher`` (request lifecycle, job
-spans, occupancy counters), ``serve.scheduler`` (plan/admission instants),
+spans, occupancy counters; with a real engine, host-clock spans of each
+engine call and its phases, and of admission, plan, calibrator and
+slot bookkeeping), ``serve.scheduler`` (plan/admission instants),
 ``serve.calibrator`` (refit events with before/after coefficients), and
 ``serve.fleet`` (route decisions with per-lane scores + Eq.-3 verdicts,
 flow-linked to the execution they caused).  Capture with

@@ -1,7 +1,8 @@
 """Trace exporters: Chrome Trace Event JSON (Perfetto) and a JSONL log.
 
-A copy of ``repro/obs/export.py``; its results are bit-identical to the
-reference's on the same inputs.
+The port of ``repro/obs/export.py``: its results are bit-identical to the
+reference's on the same inputs, save the host clock's epoch, which a trace
+with host-clock stamps carries in its metadata.
 
 Chrome Trace Event JSON is the `trace event format`_ Perfetto's legacy
 importer reads: open https://ui.perfetto.dev and drop the file in.  The
@@ -13,9 +14,13 @@ microsecond axis:
   * ``cycles`` at the paper's 1 GHz clock: 1 cycle == 1 ns == 1e-3 us;
   * ``wall_s`` measured host seconds: 1 s == 1e6 us.
 
-The two domains share **no epoch**, so wall-domain procs are exported as
+The cycle domain has no epoch, so wall-domain procs are exported as
 separate ``wall:<proc>`` processes — side by side, never overlaid
-(DESIGN.md §9).
+(DESIGN.md §9).  A trace whose wall events were stamped on the tracer's
+host clock carries that clock's epoch in ``otherData``:
+``wall_epoch_unix_ns``, the Unix time in ns of its zero, so that
+``wall_epoch_unix_ns / 1e3 + ts`` puts a ``wall:`` event on the Unix
+microsecond axis a ``torch.profiler`` trace of the card uses.
 
 The JSONL exporter writes one raw event dict per line (recording order,
 native time units) — the machine-readable log ``tools/trace_report.py`` and
@@ -85,7 +90,10 @@ def to_chrome(tracer: Tracer) -> dict:
     # Perfetto tolerates unsorted input but renders (and diffs) better
     # sorted; metadata events carry ts 0 implicitly and sort first.
     out.sort(key=lambda r: (r["ph"] != "M", r.get("ts", 0.0)))
-    return {"traceEvents": out, "displayTimeUnit": "ns"}
+    doc = {"traceEvents": out, "displayTimeUnit": "ns"}
+    if tracer.host_stamped:
+        doc["otherData"] = {"wall_epoch_unix_ns": tracer.epoch_unix_ns}
+    return doc
 
 
 def write_chrome_trace(tracer: Tracer, path: str | Path) -> Path:

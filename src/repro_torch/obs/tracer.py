@@ -1,7 +1,9 @@
 """Low-overhead structured tracer for the offload serving stack.
 
-A copy of ``repro/obs/tracer.py``; its results are bit-identical to the
-reference's on the same inputs.
+The port of ``repro/obs/tracer.py``.  Its cycle-domain events, and every
+export of a trace with no host-clock stamp, are bit-identical to the
+reference's on the same inputs; the host clock's epoch (``now``, ``at``,
+``epoch_unix_ns``) is the port's own.
 
 The paper's claim is that offloaded runtime can be *modeled* (Eq. 1, ≤1%
 MAPE); PRs 4-5 plan against that model at three layers (engine phase
@@ -34,20 +36,30 @@ id is the request id.
 
 Two time domains (DESIGN.md §9): ``domain="cycles"`` is the fabric-cycle
 virtual clock the scheduler plans in (at the paper's 1 GHz, cycles == ns);
-``domain="wall_s"`` is measured host seconds from the real engine steps.
-The exporter keeps the domains in separate process groups — they share no
-epoch, so they must never be rendered on one axis as if aligned.
+``domain="wall_s"`` is the host clock.  A ``Tracer`` reads
+``time.perf_counter()`` and ``time.time_ns()`` together once, when it is
+built: that is the host clock's epoch.  :meth:`Tracer.now` gives host
+seconds since it, and :meth:`Tracer.at` turns a ``perf_counter`` reading
+the caller already made into the same clock, so ``epoch_unix_ns / 1e9 +
+ts`` places a ``wall_s`` event on the Unix clock that ``torch.profiler``
+stamps device activity on.  With a real engine attached, the serving
+stack records its engine calls (dispatch, input copies, graph replay,
+output copies, read-back, wait) and the batcher's phases (admission,
+plan, calibrator, slot bookkeeping) on that clock.  The cycle domain has
+no such epoch, so the exporter keeps the two domains in separate process
+groups, never on one axis.
 
 Overhead budget: tracing defaults to **off** — every instrumentation site
 guards with ``if tracer is not None`` (or holds the shared :data:`NULL`
 no-op whose methods return immediately), so the disabled cost is one
-attribute check per event site and the benchmark headlines stay inside the
-``tools/bench_compare.py`` gate.  Enabled cost is one dataclass append per
-event; exporters do all formatting after the run.
+attribute check per event site and no clock read.  Enabled cost is one
+dataclass append per event (and a clock read per host-clock stamp);
+exporters do all formatting after the run.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 #: The tracer's two time domains (DESIGN.md §9).
@@ -88,6 +100,23 @@ class Tracer:
 
     def __init__(self):
         self.events: list[TraceEvent] = []
+        # The host clock's epoch: one perf_counter reading, taken around
+        # the Unix clock's, and that Unix time in ns.
+        a = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()
+        self.perf0 = 0.5 * (a + time.perf_counter())
+        #: True once an event was stamped on the host clock (now/at).
+        self.host_stamped = False
+
+    def now(self) -> float:
+        """Host seconds since the epoch (the ``wall_s`` domain's clock)."""
+        self.host_stamped = True
+        return time.perf_counter() - self.perf0
+
+    def at(self, perf_s: float) -> float:
+        """A ``time.perf_counter()`` reading on the host clock."""
+        self.host_stamped = True
+        return perf_s - self.perf0
 
     def __bool__(self) -> bool:  # ``if tracer:`` guards stay truthy
         return True
@@ -153,12 +182,21 @@ class NullTracer:
 
     enabled = False
     events: list = []
+    epoch_unix_ns = 0
+    perf0 = 0.0
+    host_stamped = False
 
     def __bool__(self) -> bool:
         return False
 
     def __len__(self) -> int:
         return 0
+
+    def now(self) -> float:
+        return 0.0
+
+    def at(self, perf_s: float) -> float:
+        return 0.0
 
     def span(self, *a, **k) -> None:
         pass

@@ -56,6 +56,20 @@ every input crosses in one pinned ``non_blocking`` copy on the
 dispatcher's copy stream, the prompt tokens' timed placement waits for
 that copy alone, the copy into a graph's input buffers is queued on the
 compute stream behind it, and the slot merge picks rows on the card.
+
+With a tracer (``ServingEngine.trace_to``, which a ``ContinuousBatcher``
+given a tracer and an engine calls), the engine records each call as a
+span on the host clock of ``repro_torch.obs`` (the ``engine`` track of the
+lane's ``wall:`` process): ``decode`` or ``prefill``, with the call's
+sequence number, its compiled step's name and key and the rows it computes
+and keeps, holding in order ``dispatch`` (operand placement), ``copy_in``,
+``replay`` (or ``capture`` at a key's first call), ``copy_out`` (the
+compiled step's phases), ``readback`` (the pinned copies and the event)
+and ``wait`` (the event and the credit read).  A step launched while
+another is in flight (the pipelined loop's refill) goes on the
+``engine:overlap`` track.  The batcher adds ``admit``, ``plan``,
+``calibrator`` and ``place`` spans on the ``batcher`` track.  Without a
+tracer each site costs one ``is not None`` check and reads no clock.
 """
 
 from __future__ import annotations
@@ -119,6 +133,7 @@ class PendingStep:
     launch_s: float = 0.0          # measured kernel-queueing seconds
     done: torch.cuda.Event | None = None
     host: dict | None = None
+    trace: "_CallTrace | None" = None   # with a tracer: the call so far
 
 
 class ServingEngine:
@@ -143,6 +158,12 @@ class ServingEngine:
         self.fused_decode = fused_decode
         self.dispatcher = MulticastDispatcher()
         self.sync = CreditCounterSync(self.mesh)
+        # Host-clock tracing (``trace_to``): off by default.
+        self.tracer = None
+        self.trace_proc = "fabric"
+        self._marks: list = []         # the compiled steps' phases
+        self._calls = 0                # traced calls so far
+        self._in_flight = 0            # traced steps launched, not waited
         #: Credits read by the most recent completed step.
         self.last_credits: int | None = None
         self.params = (params if params is not None else
@@ -174,8 +195,21 @@ class ServingEngine:
     def _compiled(self, fn, name: str) -> CompiledStep:
         """``fn(params, x, caches, ...)`` compiled with the parameters and
         the caches static."""
-        return CompiledStep(fn, device=self.device, static_argnums=(0, 2),
+        step = CompiledStep(fn, device=self.device, static_argnums=(0, 2),
                             pool=self.pool, name=name)
+        if self.tracer is not None:
+            step.marks = self._marks
+        return step
+
+    def trace_to(self, tracer, proc: str = "fabric") -> None:
+        """Record every later call as host-clock spans on ``tracer``
+        (a ``repro_torch.obs.Tracer``) under ``proc``; None stops it."""
+        self.tracer = tracer or None
+        self.trace_proc = proc
+        self._in_flight = 0
+        self._marks.clear()
+        for step in self.compiled_steps():
+            step.marks = self._marks if self.tracer is not None else None
 
     def _get_prefill(self, prompt_len: int) -> CompiledStep:
         if prompt_len not in self._prefill_jit:
@@ -201,21 +235,48 @@ class ServingEngine:
                              "step returned")
         return caches
 
-    def _launch(self, step, *args, dispatch_s: float = 0.0) -> PendingStep:
-        """Queue ``step(*args)`` and time the queueing."""
+    def _launch(self, step, *args, dispatch_s: float = 0.0,
+                kind: str = "decode", t_put: float = 0.0,
+                rows_kept: int | None = None) -> PendingStep:
+        """Queue ``step(*args)`` and time the queueing.  With a tracer,
+        ``t_put`` is the ``perf_counter`` reading at the start of the
+        call's operand placement, which ends where the queueing starts."""
         t0 = time.perf_counter()
         out = step(*args)
         out["caches"] = self._caches      # the engine's own, as passed
         done = host = None
+        tr = self.tracer
+        if tr is not None:
+            t_step = time.perf_counter()
         if self.device.type == "cuda":
             host = {name: _pinned_copy(t) for name, t in (
                 ("credits", out["credits"]),
                 ("next_token", self._whole(out["next_token"])))}
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-        return PendingStep(out=out, dispatch_s=dispatch_s,
-                           launch_s=time.perf_counter() - t0, done=done,
-                           host=host)
+        t1 = time.perf_counter()
+        pending = PendingStep(out=out, dispatch_s=dispatch_s,
+                              launch_s=t1 - t0, done=done, host=host)
+        if tr is not None:
+            pending.trace = self._open_call(tr, step, kind, rows_kept, [
+                ("dispatch", t_put, t0, None), *self._marks,
+                ("readback", t_step, t1, None)])
+            self._marks.clear()
+        return pending
+
+    def _open_call(self, tr, step, kind: str, rows_kept: int | None,
+                   phases: list) -> "_CallTrace":
+        """A traced call's record at its launch."""
+        self._calls += 1
+        args = {"seq": self._calls, "step": step.name,
+                "key": next((a["key"] for _, _, _, a in phases
+                             if a and "key" in a), None),
+                "rows_computed": self.max_batch}
+        if rows_kept is not None:
+            args["rows_kept"] = rows_kept
+        track = "engine:overlap" if self._in_flight else "engine"
+        self._in_flight += 1
+        return _CallTrace(tr, kind, track, args, phases)
 
     def _whole(self, t: torch.Tensor) -> torch.Tensor:
         return t.full_tensor() if self.mesh is not None else t
@@ -239,21 +300,25 @@ class ServingEngine:
             metrics.record_dispatch(dstats)
         return self.wait_step(self._launch(
             step, self.params, {"tokens": placed}, self._caches,
-            dispatch_s=dstats.seconds))
+            dispatch_s=dstats.seconds, kind="prefill", t_put=dstats.t0))
 
     def prefill_into_slots_async(self, tokens: np.ndarray, caches,
                                  slot_mask: np.ndarray,
                                  metrics=None) -> PendingStep:
         """Launch a prefill-into-slots step without blocking on it."""
         tokens = np.asarray(tokens, np.int32)
+        slot_mask = np.asarray(slot_mask, bool)
         step = self._get_slot_prefill(tokens.shape[1])
         placed, dstats = self.dispatcher.timed_put(tokens, self.device)
         if metrics is not None:
             metrics.record_dispatch(dstats)
-        mask = self.dispatcher.put(np.asarray(slot_mask, bool), self.device)
+        mask = self.dispatcher.put(slot_mask, self.device)
         return self._launch(step, self.params, {"tokens": placed},
                             self._own(caches), mask,
-                            dispatch_s=dstats.seconds)
+                            dispatch_s=dstats.seconds, kind="prefill",
+                            t_put=dstats.t0,
+                            rows_kept=(int(np.count_nonzero(slot_mask))
+                                       if self.tracer is not None else None))
 
     def prefill_into_slots(self, tokens: np.ndarray, caches,
                            slot_mask: np.ndarray, metrics=None):
@@ -290,13 +355,14 @@ class ServingEngine:
 
     def decode_async(self, tok: np.ndarray, caches, lens) -> PendingStep:
         """Launch one decode step without blocking on its completion."""
+        t_put = time.perf_counter() if self.tracer is not None else 0.0
         lens = np.asarray(lens, np.int32)
         if lens.ndim == 0:
             lens = np.full((self.max_batch,), int(lens), np.int32)
         tok_t, lens_t = self.dispatcher.put((np.asarray(tok, np.int32), lens),
                                             self.device)
         return self._launch(self._dec_jit, self.params, tok_t,
-                            self._own(caches), lens_t)
+                            self._own(caches), lens_t, t_put=t_put)
 
     def decode(self, tok: np.ndarray, caches, lens):
         """tok (max_batch, 1) int32 -> (next_token (B,), caches, wall_s).
@@ -321,6 +387,9 @@ class ServingEngine:
         credit scalar.  On the card that wait is on the step's own event,
         behind its host copies; on the CPU the outputs are read as they are.
         """
+        call = pending.trace
+        if call is not None:
+            t_wait = time.perf_counter()
         if pending.host is None:
             got, wait_s = self.sync.timed_wait(pending.out["credits"])
             next_token = self._whole(pending.out["next_token"]).cpu()
@@ -329,9 +398,14 @@ class ServingEngine:
                                                ready=pending.done)
             next_token = pending.host["next_token"]
         self.last_credits = got
-        return (next_token.numpy(),
-                pending.out["caches"],
-                pending.dispatch_s + pending.launch_s + wait_s)
+        wall_s = pending.dispatch_s + pending.launch_s + wait_s
+        if call is not None:
+            self._in_flight -= 1
+            call.close(self.trace_proc, t_wait, time.perf_counter(), {
+                "dispatch_s": pending.dispatch_s,
+                "launch_s": pending.launch_s, "wait_s": wait_s,
+                "wall_s": wall_s})
+        return next_token.numpy(), pending.out["caches"], wall_s
 
 
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -339,6 +413,34 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     stream without a host sync."""
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     return host.copy_(t, non_blocking=True)
+
+
+@dataclasses.dataclass
+class _CallTrace:
+    """One traced engine call between its launch and its wait: its phases
+    as ``(name, start, end, args)`` with ``perf_counter`` readings."""
+
+    tracer: object
+    kind: str                      # "decode" | "prefill"
+    track: str
+    args: dict
+    phases: list
+
+    def close(self, proc: str, t_wait: float, t_waited: float,
+              times: dict) -> None:
+        """Record the call span, then its phases, ``wait`` last.  The call
+        span ends after this recording, which it holds outside any phase,
+        so the call's host time is all inside it."""
+        tr = self.tracer
+        self.phases.append(("wait", t_wait, t_waited, None))
+        t0 = self.phases[0][1]
+        tr.span(proc, self.track, self.kind, tr.at(t0), 0.0,
+                domain="wall_s", args={**self.args, **times})
+        call = tr.events[-1]
+        for name, a, b, args in self.phases:
+            tr.span(proc, self.track, name, tr.at(a), b - a,
+                    domain="wall_s", args=args)
+        call.dur = time.perf_counter() - t0
 
 
 @dataclasses.dataclass
@@ -405,6 +507,12 @@ class ContinuousBatcher:
         self.residuals = residuals
         self.proc = proc
         self.flow = flow
+        # With an engine attached, the tracer also gets host-clock spans:
+        # the engine's calls (it is handed the tracer here) and the
+        # batcher's admit/plan/calibrator/place phases.
+        self._host = tracer if tracer and engine is not None else None
+        if engine is not None and hasattr(engine, "trace_to"):
+            engine.trace_to(self._host, proc)
         # Fault injection (DESIGN.md §10) — all optional, zero-cost when
         # unset.  ``faults`` is a runtime.fault.FaultInjector; ``fault_lane``
         # selects which of its lanes this batcher is.  The injector is
@@ -432,7 +540,6 @@ class ContinuousBatcher:
         self.orphans: list[Request] = []
         self._decode_count = 0
         self._ckpt_max_gen = 1
-        self._wall_t = 0.0   # wall-domain trace clock (real engine steps)
         self._energy_ts = 0.0  # monotonic clamp for the energy counter track
         # With a real engine attached, at most one decode may overlap an
         # in-flight prefill: the prefill is chained on that decode's caches
@@ -454,6 +561,7 @@ class ContinuousBatcher:
         added while the combined job still fits the tightest member SLO at
         some configured extent (Eq. 3 on the batch).
         """
+        t_host = self._host.now() if self._host is not None else 0.0
         limit = self.max_batch if limit is None else limit
         wave: list[Request] = []
         wave_n = 0
@@ -498,7 +606,24 @@ class ContinuousBatcher:
             wave_n, wave_deadline = cand_n, cand_deadline
             queue.pop(req)
             req.state = RequestState.RUNNING
+        if self._host is not None:
+            self._host_span("admit", t_host, {"admitted": len(wave)})
         return wave
+
+    def _host_span(self, name: str, t0: float, args: dict | None = None
+                   ) -> None:
+        """A batcher phase from ``t0`` to now on the host clock."""
+        host = self._host
+        host.span(self.proc, "batcher", name, t0, host.now() - t0,
+                  domain="wall_s", args=args)
+
+    def _plan(self, n: int, deadline, kind: str, now: float) -> BatchPlan:
+        """``scheduler.plan``, a ``plan`` span on the host clock."""
+        t_host = self._host.now() if self._host is not None else 0.0
+        plan = self.scheduler.plan(n, deadline=deadline, kind=kind, now=now)
+        if self._host is not None:
+            self._host_span("plan", t_host, {"kind": kind})
+        return plan
 
     def _resolve_prefix(self, req: Request) -> None:
         """Bind the request's warm-hit length at admission (DESIGN.md §13).
@@ -713,9 +838,17 @@ class ContinuousBatcher:
                             self.proc, "faults", "fault:skew", now,
                             args={"factor": f, "t_true": t_cycles,
                                   "t_report": t_report})
+            host = self._host
+            if host is not None:
+                t_host = host.now()
+                checks = self.calibrator.refit_checks
             self.calibrator.observe(plan.m,
                                     plan.n_elems if n_exec is None
                                     else n_exec, t_report, now=now)
+            if host is not None:
+                self._host_span("calibrator", t_host, {
+                    "refit": self.calibrator.refit_checks != checks,
+                    "samples": self.calibrator.n_samples})
             if plan.kind == "prefill":
                 self.metrics.prefill_jobs += 1
             elif plan.kind == "restore":
@@ -784,19 +917,10 @@ class ContinuousBatcher:
             self.tracer.counter(self.proc, "slots", "slots_occupied", ts,
                                 occupied)
 
-    def _record_wall(self, wall_s: float, name: str) -> None:
-        """One measured real-engine step: metrics + a wall-domain span.
-
-        Wall seconds share no epoch with the virtual cycle clock, so these
-        spans live on their own time axis (the exporter renders them as a
-        separate ``wall:`` process, DESIGN.md §9): consecutive measured
-        steps laid end to end.
-        """
+    def _record_wall(self, wall_s: float) -> None:
+        """One measured real-engine step.  Its span on the host clock is
+        the engine's own (``ServingEngine.trace_to``)."""
         self.metrics.step_wall_s.add(wall_s)
-        if self.tracer is not None:
-            self.tracer.span(self.proc, "engine", name, self._wall_t, wall_s,
-                             domain="wall_s", args={"wall_s": wall_s})
-        self._wall_t += wall_s
 
     # ------------------------------------------------------------------ #
     # Fault injection (DESIGN.md §10).  All hooks early-return when no
@@ -1004,11 +1128,7 @@ class ContinuousBatcher:
                         m.mid_wave_admissions += len(batch)
                     clock, caches = self._prefill_slots(
                         batch, free[:len(batch)], slots, emitted, gen_buf,
-                        lens, tok, clock, caches)
-                    for i in free[:len(batch)]:
-                        if slots[i] is not None and \
-                                emitted[i] >= slots[i].gen_len:
-                            finish(i, clock)
+                        lens, tok, clock, caches, finish)
                     continue   # re-check arrivals before the next decode
             occ = occupied()
             if not occ:
@@ -1021,12 +1141,11 @@ class ContinuousBatcher:
                 continue
 
             # One decode step over every occupied slot (per-slot lengths).
-            plan = self.scheduler.plan(len(occ), deadline=None, kind="decode",
-                                       now=clock)
-            wall = None
+            plan = self._plan(len(occ), None, "decode", clock)
+            wall = next_tok = None
             if self.engine is not None:
                 next_tok, caches, wall = self.engine.decode(tok, caches, lens)
-                self._record_wall(wall, "decode")
+                self._record_wall(wall)
             t_dec = self._job_runtime(plan, wall)
             self._account_job(plan, t_dec, self._executed_n(plan, None),
                               now=clock + t_dec)
@@ -1034,16 +1153,28 @@ class ContinuousBatcher:
             self._trace_job(plan, clock, t_dec)
             self._trace_occupancy(clock, len(occ))
             clock += t_dec
-            for i in occ:
-                lens[i] += 1
-                emitted[i] += 1
-                m.tokens_generated += 1
-                if self.engine is not None:
-                    tok[i, 0] = next_tok[i]
-                    gen_buf[i].append(int(next_tok[i]))
-                if emitted[i] >= slots[i].gen_len:
-                    finish(i, clock)
+            self._place_decoded(occ, slots, emitted, gen_buf, lens, tok,
+                                next_tok, clock, finish)
             self._maybe_checkpoint(slots, emitted, lens, gen_buf, clock)
+
+    def _place_decoded(self, occ: list[int], slots, emitted, gen_buf, lens,
+                       tok, next_tok, clock: float, finish) -> None:
+        """One decode step's tokens into its occupied slots, finishing the
+        requests it completes (the continuous and pipelined loops)."""
+        t_host = self._host.now() if self._host is not None else 0.0
+        m = self.metrics
+        for i in occ:
+            lens[i] += 1
+            emitted[i] += 1
+            m.tokens_generated += 1
+            if self.engine is not None:
+                tok[i, 0] = next_tok[i]
+                gen_buf[i].append(int(next_tok[i]))
+            if emitted[i] >= slots[i].gen_len:
+                finish(i, clock)
+        if self._host is not None:
+            self._host_span("place", t_host, {"kind": "decode",
+                                              "rows": len(occ)})
 
     def _plan_prefill(self, batch: list[Request],
                       clock: float) -> tuple[BatchPlan, int]:
@@ -1089,9 +1220,8 @@ class ContinuousBatcher:
                     # Close the router's flow arrow at the executing lane.
                     self.tracer.flow_end(self.proc, "requests", "route",
                                          clock, flow=r.rid)
-        plan = self.scheduler.plan(
-            n_job, deadline=deadline,
-            kind="restore" if restore else "prefill", now=clock)
+        plan = self._plan(n_job, deadline,
+                          "restore" if restore else "prefill", clock)
         return plan, prompt_len
 
     def _stage_prefill_inputs(self, batch: list[Request], take: list[int],
@@ -1106,9 +1236,12 @@ class ContinuousBatcher:
 
     def _place_prefilled(self, batch: list[Request], take: list[int],
                          slots, emitted, gen_buf, lens, tok,
-                         t_job: float, clock: float, next_tok) -> None:
+                         t_job: float, clock: float, next_tok,
+                         finish) -> None:
         """Install a completed prefill's requests into their slots, with
-        per-request TTFT/SLO/first-token accounting."""
+        per-request TTFT/SLO/first-token accounting, and finish those it
+        completes."""
+        t_host = self._host.now() if self._host is not None else 0.0
         for slot, r in zip(take, batch):
             slots[slot] = r
             if r.restore_len > 0:
@@ -1130,10 +1263,16 @@ class ContinuousBatcher:
             if next_tok is not None:
                 tok[slot, 0] = next_tok[slot]
                 gen_buf[slot].append(int(next_tok[slot]))
+        for slot, r in zip(take, batch):
+            if slots[slot] is r and emitted[slot] >= r.gen_len:
+                finish(slot, clock)
+        if self._host is not None:
+            self._host_span("place", t_host, {"kind": "prefill",
+                                              "rows": len(batch)})
 
     def _prefill_slots(self, batch: list[Request], take: list[int],
                        slots, emitted, gen_buf, lens, tok,
-                       clock: float, caches):
+                       clock: float, caches, finish):
         """One prefill job placing ``batch`` into the free ``take`` slots.
 
         Returns ``(clock, caches)`` — the advanced virtual clock and the
@@ -1147,14 +1286,14 @@ class ContinuousBatcher:
             tokens, mask = self._stage_prefill_inputs(batch, take, prompt_len)
             next_tok, caches, wall = self.engine.prefill_into_slots(
                 tokens, caches, mask, self.metrics)
-            self._record_wall(wall, "prefill")
+            self._record_wall(wall)
         t_job = self._job_runtime(plan, wall)
         self._account_job(plan, t_job, self._executed_n(plan, prompt_len),
                           now=clock + t_job)
         self._trace_job(plan, clock, t_job)
         clock += t_job
         self._place_prefilled(batch, take, slots, emitted, gen_buf, lens,
-                              tok, t_job, clock, next_tok)
+                              tok, t_job, clock, next_tok, finish)
         return clock, caches
 
     # ------------------------------------------------------------------ #
@@ -1234,10 +1373,9 @@ class ContinuousBatcher:
 
             # One decode step over the occupied slots, overlapped under the
             # in-flight prefill when there is one.
-            plan = self.scheduler.plan(len(occ), deadline=None, kind="decode",
-                                       now=clock)
+            plan = self._plan(len(occ), None, "decode", clock)
             pending_d = None
-            wall = None
+            wall = next_tok = None
             if self.engine is not None:
                 pending_d = self.engine.decode_async(tok, caches, lens)
                 if inflight is not None and inflight.pending is None:
@@ -1258,7 +1396,7 @@ class ContinuousBatcher:
                 t_submit=clock, offload=plan.offload)
             if self.engine is not None:
                 next_tok, caches_d, wall = self.engine.wait_step(pending_d)
-                self._record_wall(wall, "decode")
+                self._record_wall(wall)
                 if inflight is None or inflight.pending is None:
                     caches = caches_d
                 # else: the in-flight prefill merges into the decode's
@@ -1271,15 +1409,8 @@ class ContinuousBatcher:
             self._trace_job(plan, job.t_done - job.total, job.total)
             self._trace_occupancy(clock, len(occ))
             clock = max(clock, job.t_done)
-            for i in occ:
-                lens[i] += 1
-                emitted[i] += 1
-                m.tokens_generated += 1
-                if self.engine is not None:
-                    tok[i, 0] = next_tok[i]
-                    gen_buf[i].append(int(next_tok[i]))
-                if emitted[i] >= slots[i].gen_len:
-                    finish(i, clock)
+            self._place_decoded(occ, slots, emitted, gen_buf, lens, tok,
+                                next_tok, clock, finish)
             self._maybe_checkpoint(slots, emitted, lens, gen_buf, clock)
 
             if inflight is not None:
@@ -1329,7 +1460,7 @@ class ContinuousBatcher:
                 inflight.pending = self.engine.prefill_into_slots_async(
                     inflight.tokens, caches, inflight.mask, m)
             next_tok, caches, wall = self.engine.wait_step(inflight.pending)
-            self._record_wall(wall, "prefill")
+            self._record_wall(wall)
         job = self._complete(inflight.handle, wall)
         plan = inflight.plan
         self._account_job(plan, job.effective,
@@ -1342,10 +1473,8 @@ class ContinuousBatcher:
         clock = max(clock, job.t_done)
 
         self._place_prefilled(inflight.batch, inflight.take, slots, emitted,
-                              gen_buf, lens, tok, job.total, clock, next_tok)
-        for slot, r in zip(inflight.take, inflight.batch):
-            if slots[slot] is r and emitted[slot] >= r.gen_len:
-                finish(slot, clock)
+                              gen_buf, lens, tok, job.total, clock, next_tok,
+                              finish)
         return clock, caches
 
     # ------------------------------------------------------------------ #
@@ -1366,18 +1495,22 @@ class ContinuousBatcher:
             for slot, r in enumerate(wave):
                 tokens[slot] = r.tokens
             next_tok, caches, wall = self.engine.prefill(tokens, self.metrics)
-            self._record_wall(wall, "prefill")
+            self._record_wall(wall)
         t_job = self._job_runtime(plan, wall)
         self._account_job(plan, t_job, self._executed_n(plan, prompt_len),
                           now=clock + t_job)
         self._trace_job(plan, clock, t_job)
         clock += t_job
 
+        t_host = self._host.now() if self._host is not None else 0.0
         gen_buf: list[list[int]] = [[] for _ in wave]
         for slot, r in enumerate(wave):
             self._record_prefill_member(r, t_job, clock)
             if next_tok is not None:
                 gen_buf[slot].append(int(next_tok[slot]))
+        if self._host is not None:
+            self._host_span("place", t_host, {"kind": "prefill",
+                                              "rows": len(wave)})
 
         # --- decode: one job per token step over the active members -----
         max_gen = max(r.gen_len for r in wave)
@@ -1388,13 +1521,12 @@ class ContinuousBatcher:
             active = [r for r in wave if r.gen_len > step + 1]
             if not active:
                 break
-            plan_d = self.scheduler.plan(len(active), deadline=None,
-                                         kind="decode", now=clock)
+            plan_d = self._plan(len(active), None, "decode", clock)
             wall = None
             if self.engine is not None:
                 next_tok, caches, wall = self.engine.decode(
                     tok, caches, prompt_len + step)
-                self._record_wall(wall, "decode")
+                self._record_wall(wall)
                 tok = next_tok[:, None].astype(np.int32)
             t_dec = self._job_runtime(plan_d, wall)
             self._account_job(plan_d, t_dec, self._executed_n(plan_d, None),
@@ -1403,6 +1535,7 @@ class ContinuousBatcher:
             self._trace_job(plan_d, clock, t_dec)
             self._trace_occupancy(clock, len(active))
             clock += t_dec
+            t_host = self._host.now() if self._host is not None else 0.0
             for slot, r in enumerate(wave):
                 if r.gen_len > step + 1:
                     m.tokens_generated += 1
@@ -1410,6 +1543,9 @@ class ContinuousBatcher:
                         gen_buf[slot].append(int(next_tok[slot]))
                     if r.gen_len == step + 2:
                         done_at[r.rid] = clock
+            if self._host is not None:
+                self._host_span("place", t_host, {"kind": "decode",
+                                                  "rows": len(active)})
 
         for slot, r in enumerate(wave):
             self._complete_request(r, queue, done_at[r.rid], gen_buf[slot])

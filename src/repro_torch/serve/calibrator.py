@@ -1,7 +1,9 @@
 """Online runtime-model calibration from completed-step timings.
 
 A copy of ``repro/serve/calibrator.py``; its results are bit-identical to
-the reference's on the same inputs.
+the reference's on the same inputs.  The port also counts the refits it
+enters (``refit_checks``) and exposes the window's size (``n_samples``),
+which the batcher's host-clock ``calibrator`` spans carry.
 
 The paper fits (alpha, beta, gamma) of t̂(M, N) = alpha + beta*N + gamma*N/M
 offline, from a measurement grid.  A serving system cannot assume the
@@ -95,6 +97,7 @@ class OnlineCalibrator:
         self._since_refit = 0
         self.n_observed = 0
         self.n_refits = 0
+        self.refit_checks = 0      # entries into _refit, accepted or not
         self.n_quarantines = 0
         # Optional span tracer (repro_torch.obs): refit instants with the
         # before/after coefficients, on this lane's "calibrator" track.
@@ -136,6 +139,7 @@ class OnlineCalibrator:
 
     def _refit(self, now: float = 0.0) -> None:
         self._since_refit = 0
+        self.refit_checks += 1
         if len(self._samples) < self.min_samples:
             return
         if self._diverse():
@@ -204,6 +208,11 @@ class OnlineCalibrator:
     @property
     def model(self) -> OffloadModel:
         return self._model
+
+    @property
+    def n_samples(self) -> int:
+        """The window's size."""
+        return len(self._samples)
 
     def window_mape(self) -> float | None:
         """Eq.-2 MAPE of the served model over the current window."""
