@@ -7,8 +7,8 @@ Phases; each raises on failure, and the script then exits non-zero without
 printing a result:
 
   1. card: name and power limit (nvidia-smi), torch version; TF32 off;
-  2. build: every CUDA kernel of the port (decode_attention, daxpy,
-     fused_adamw), one nvcc each, all started together, from the sources
+  2. build: every CUDA kernel of the port (decode_attention,
+     prefill_attention, daxpy, fused_adamw), one nvcc each, all started together, from the sources
      here; each decode-attention kernel's SASS counted (``cuobjdump``:
      instructions, tensor-core HMMA, cp.async LDGSTS), the tensor-core
      build required to hold HMMA;
@@ -33,7 +33,14 @@ printing a result:
      (reduced chatglm3-6b, qwen3-moe-30b-a3b and zamba2-1.2b) without
      raising, the decode kernel counted once per attention layer per
      replay; and the kernel captured and replayed in a graph at a shape
-     whose launch sets its shared-memory attribute (G = 64);
+     whose launch sets its shared-memory attribute (G = 64); then the
+     prefill-attention kernel against its plain version at the benchmark
+     cells' prefill shapes and at ragged, windowed, D = 64 and D = 256
+     shapes (within ``prefill_tolerance``), and timed at the cells' shapes
+     (CUDA events, median, L2 flushed first) beside its bound, its plain
+     version and an attend-only yardstick,
+     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+     (timed only; the port never calls it);
   4. time: kernels and plain version at the chatglm3-6b decode shape and
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
@@ -72,6 +79,9 @@ printing a result:
      with the CLI's defaults (48 requests at 2e6 req/s, seed 0) on the
      wall-clock fabric with the fused decode step: the kernel must launch
      28 x (decode jobs + one warm-up decode per distinct prompt length),
+     the prefill-attention kernel a multiple of 28 times (once per layer
+     and prefill; never on a mesh or where the route keeps the plain
+     version),
      every credit read must be at its threshold, every admitted request
      completed with in-range tokens; the same with the pipelined loop,
      its replayed decode steps queued and awaited under
@@ -195,6 +205,9 @@ DAXPY_SOURCE = "src/repro_torch/kernels/csrc/daxpy.cu"
 DAXPY_REPLACES = "src/repro/kernels/daxpy.py:35"
 ADAMW_SOURCE = "src/repro_torch/kernels/csrc/fused_adamw.cu"
 ADAMW_REPLACES = "src/repro/kernels/fused_adamw.py:52"
+PREFILL_SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
+PREFILL_REPLACES = ("none: the reference's prefill attention is plain jnp "
+                    "(src/repro/models/layers.py, chunked_attention)")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}   # dense bf16 / f32 non-tensor
 ARCH = "chatglm3-6b"
@@ -356,6 +369,23 @@ OPT_PARAM_TOL = {"abs": 1e-6, "frac": 1e-5}
 # f32 atol scales with max|V| (see check_case); bf16 rtol is two bf16 ULPs
 # (one rounding flip after f32 sums taken in another order).
 TOL = {"f32": dict(rtol=1e-5, atol=1e-6), "bf16": dict(rtol=1.6e-2, atol=1e-4)}
+# The benchmark cells' prefill shapes, (cell, B, L, H, K, D), bf16: each
+# cell's slot prefill computes every slot's row at the prompt's length.
+PREFILL_SHAPES = (
+    [("glm3-6b.prefill-heavy", 4, n, 32, 2, 128) for n in (512, 1024, 1536,
+                                                           2048)]
+    + [("qwen3-moe-30b.decode-heavy", 8, n, 32, 4, 128) for n in (128, 256,
+                                                                  512)]
+    + [("glm3-6b.decode-heavy", 8, n, 32, 2, 128) for n in (64, 128, 192,
+                                                            256)])
+# Shapes the kernel is held against the plain version at, beyond those:
+# short and ragged prompts, a sliding window, head dims 64 and 256.
+PREFILL_EDGE_SHAPES = [("ragged", 4, 17, 32, 2, 128, 0),
+                       ("ragged", 4, 100, 32, 4, 128, 0),
+                       ("window", 4, 2048, 32, 4, 128, 1024),
+                       ("window", 2, 700, 16, 2, 128, 100),
+                       ("d64", 3, 333, 8, 1, 64, 0),
+                       ("d256-window", 1, 200, 8, 2, 256, 50)]
 
 
 def log(msg: str) -> None:
@@ -746,6 +776,111 @@ def bound(case, args) -> tuple[float, str, float, float]:
     return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
 
 
+def prefill_inputs(b, length, h, kh, d, dev, seed=0):
+    """bf16 q (B, L, H, D) and k, v (B, L, K, D), drawn on the CPU; q
+    scaled by 2 so the softmax is peaked as well as flat."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, length, h, d, generator=gen) * 2.0
+    k = torch.randn(b, length, kh, d, generator=gen)
+    v = torch.randn(b, length, kh, d, generator=gen)
+    return tuple(t.to(torch.bfloat16).to(dev) for t in (q, k, v))
+
+
+def prefill_tolerance(q, k, v, want, window: int = 0):
+    """How far the prefill-attention kernel may lie from its plain version,
+    per element.  Both round p to bf16 before p@V, but under running maxima
+    of other tile widths (64 keys against 1024), so a p may round to the
+    other side: bf16 keeps 8 significant bits, so the two roundings lie
+    within 2 * 2^-8 of p, and the outputs within 2^-7 of sum(p |v|) /
+    sum(p), which is the plain version over |v|.  Each output then rounds
+    once to bf16, 2^-8 of |out| each, 2^-7 apart.  The f32 sums in another
+    order add ~1e-6 relative, far below either."""
+    from repro_torch.kernels import prefill_attention as PA
+    mag = PA.prefill_attention_plain(q, k, v.abs(), window=window).float()
+    return 2.0 ** -7 * (mag + want.float().abs()) + 1e-6
+
+
+def check_prefill(shape, dev, seed=0) -> dict:
+    """The prefill-attention kernel against its plain version at ``shape``
+    ((tag, B, L, H, K, D[, window])): within ``prefill_tolerance``."""
+    import torch
+    from repro_torch.kernels import prefill_attention as PA
+    tag, b, length, h, kh, d, *rest = shape
+    window = rest[0] if rest else 0
+    q, k, v = prefill_inputs(b, length, h, kh, d, dev, seed)
+    got = PA.prefill_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = PA.prefill_attention_plain(q, k, v, window=window)
+    err = (got.float() - want.float()).abs()
+    tol = prefill_tolerance(q, k, v, want, window)
+    res = {"shape": f"{tag} B={b} L={length} H={h} K={kh} D={d} "
+                    f"window={window}",
+           "max_abs_err": err.max().item(),
+           "share_of_tolerance": (err / tol).max().item()}
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"prefill_attention off its plain version: {res}")
+    return res
+
+
+def prefill_bound(b, length, h, kh, d) -> tuple[float, str, int, int]:
+    """Least time of one prefill attention (one layer): the causal q.K^T
+    and p@V, 4*B*H*D*L*(L+1)/2 operations, over the bf16 peak, or q, k, v
+    read and the output written once over the HBM rate, whichever is
+    longer (``bench/metrics/prefill_attention_roofline.py``'s count)."""
+    ops = 4 * b * h * d * length * (length + 1) // 2
+    nbytes = b * length * (2 * h + 2 * kh) * d * 2
+    t_ops, t_bytes = ops / PEAK_OPS_PER_S["bf16"], nbytes / HBM_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, nbytes, ops
+
+
+def time_prefill_attention(shape, dev) -> dict:
+    """The prefill-attention kernel at ``shape`` ((cell, B, L, H, K, D)),
+    CUDA events, median, L2 flushed before each launch, beside its bound,
+    its plain version and an attend-only yardstick,
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import prefill_attention as PA
+    cell, b, length, h, kh, d = shape
+    q, k, v = prefill_inputs(b, length, h, kh, d, dev)
+    kernel_ms = time_ms(lambda: PA.prefill_attention(q, k, v), dev, reps=50,
+                        warmup=5)
+    plain_ms = time_ms(lambda: PA.prefill_attention_plain(q, k, v), dev,
+                       reps=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), dev, reps=50, warmup=5)
+    bound_ms, by, nbytes, ops = prefill_bound(b, length, h, kh, d)
+    return {"cell": cell, "shape": f"B={b} L={length} H={h} K={kh} D={d}",
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "attend_only_sdpa_ms": sdpa_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes, "ops": ops,
+            "roofline_pct": 100.0 * bound_ms / kernel_ms,
+            "l2": "flushed before each launch"}
+
+
+def phase_prefill_attention(dev) -> dict:
+    """The prefill-attention kernel against its plain version at the cells'
+    prefill shapes and the edge shapes, then timed at the cells' shapes."""
+    checks = [check_prefill(s, dev) for s in PREFILL_SHAPES
+              + PREFILL_EDGE_SHAPES]
+    for c in checks:
+        log(f"[check] prefill_attention {c['shape']}: largest error "
+            f"{c['max_abs_err']:.3g}, {c['share_of_tolerance']:.3f} of the "
+            "tolerance")
+    timing = [time_prefill_attention(s, dev) for s in PREFILL_SHAPES]
+    card = card_line()
+    for t in timing:
+        log(f"[time] {card}: prefill_attention at {t['shape']} "
+            f"({t['cell']}): kernel {t['kernel_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"{t['roofline_pct']:.1f} % of it), plain {t['plain_ms']:.3f} ms, "
+            f"attend-only SDPA yardstick {t['attend_only_sdpa_ms']:.4f} ms")
+    return {"checks": checks, "timing": timing}
+
+
 # --------------------------------------------------------------------------- #
 # Phases
 # --------------------------------------------------------------------------- #
@@ -895,6 +1030,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     from repro_torch.configs import get_config
     from repro_torch.core.sync import credit_threshold
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import prefill_attention as PA
     from repro_torch.obs import Tracer
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
@@ -909,7 +1045,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
                            else ([0], lambda: None))
     windows, undo_window = time_loop_runs()
     try:
-        DA.LAUNCHES = DA.SHARD_LAUNCHES = 0
+        DA.LAUNCHES = DA.SHARD_LAUNCHES = PA.LAUNCHES = 0
         t0 = time.perf_counter()
         out = serve_workload(stream_spec(requests), config=ServeConfig(
             arch=arch, reduced=False, fused_decode=True, fabric="wallclock",
@@ -920,6 +1056,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         wall = time.perf_counter() - t0
         launches, other = ((DA.SHARD_LAUNCHES, DA.LAUNCHES) if mesh is not None
                            else (DA.LAUNCHES, DA.SHARD_LAUNCHES))
+        prefill_launches = PA.LAUNCHES
     finally:
         undo()
         undo_rec()
@@ -936,6 +1073,17 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
                              f"streaming, expected {n_attn} x "
                              f"({m.decode_jobs} + {n_lengths}); the other "
                              f"form of the decode kernel {other} times")
+    # One prefill-attention launch per attention layer and prefill (warm-up
+    # and capture included) where the kernel takes the prefill: one device,
+    # bf16, a built head dim; none on a mesh.
+    takes = (mesh is None and cfg.dtype == "bfloat16"
+             and cfg.qk_head_dim in PA.HEAD_DIMS and n_attn > 0)
+    if (prefill_launches % max(n_attn, 1)
+            or bool(prefill_launches) != takes):
+        raise AssertionError(f"prefill_attention launched {prefill_launches} "
+                             f"times over {n_attn} attention layers "
+                             f"(the route {'takes' if takes else 'skips'} "
+                             "the kernel)")
     # Every decode but the first warm-up one, which captures the graph.
     if sync_check and checked[0] != m.decode_jobs + n_lengths - 1:
         raise AssertionError(f"{checked[0]} decode steps ran under the sync "
@@ -977,8 +1125,8 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
            "prompt_lengths": n_lengths, "admitted": m.admitted,
            "rejected": m.rejected, "completed": m.completed,
            "prefill_jobs": m.prefill_jobs, "decode_jobs": m.decode_jobs,
-           "launches": launches, "credit_reads": len(reads),
-           "decode_tokens": decode_tokens, "decode_s": decode_s,
+           "launches": launches, "prefill_launches": prefill_launches,
+           "credit_reads": len(reads), "decode_tokens": decode_tokens, "decode_s": decode_s,
            "prefill_s": prefill_s,
            "decode_tok_s": decode_tokens / decode_s,
            "decode_wall_ms_per_step": decode_s / m.decode_jobs * 1e3,
@@ -1009,8 +1157,8 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
               f"no attention layer, so no decode-kernel launch ({launches})")
     log(f"[{tag}] {card}: admitted {m.admitted}, rejected {m.rejected}, "
         f"completed {m.completed}; prefill jobs {m.prefill_jobs}, decode "
-        f"jobs {m.decode_jobs}; {kernel}; "
-        f"credit reads {len(reads)}/{n_reads} at threshold; "
+        f"jobs {m.decode_jobs}; {kernel}; prefill_attention launches "
+        f"{prefill_launches}; credit reads {len(reads)}/{n_reads} at threshold; "
         f"{m.pipelined_prefills} pipelined prefills"
         + (f"; {checked[0]} replayed decode steps queued and awaited under "
            "set_sync_debug_mode('error')" if sync_check else ""))
@@ -3337,6 +3485,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     results["no_sync"] = check_no_sync(dev)
     results["captured_kernel"] = check_captured_kernel(dev)
     free()
+    # The prefill-attention kernel: against its plain version, then timed
+    # at the benchmark cells' prefill shapes.
+    results["prefill_attention"] = pa = phase_prefill_attention(dev)
+    free()
 
     # 4. Timing at the full decode shape.
     args, lens = make_inputs(FULL_CASE, 0, dev)
@@ -3520,6 +3672,8 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     results["total_s"] = time.perf_counter() - t_start
 
     dx = results["daxpy_timing"][-1]            # n = 2^27, f32
+    pt = next(t for t in pa["timing"]           # B=4, L=2048, chatglm3-6b
+              if t["shape"] == "B=4 L=2048 H=32 K=2 D=128")
     aw = results["adamw_timing"]
     kernels = {"kernels": [
         {"name": "fused_decode_attention", "route": "cuda",
@@ -3578,6 +3732,18 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
                        for name, tm in results["shard_timing"].items()},
          "whole_ms": {name: tm["whole"]["ms"]
                       for name, tm in results["shard_timing"].items()}},
+        {"name": "prefill_attention", "route": "cuda",
+         "source": PREFILL_SOURCE, "replaces": PREFILL_REPLACES,
+         "launches": results["stream"]["prefill_launches"],
+         "max_abs_err": max(c["max_abs_err"] for c in pa["checks"]),
+         "ms": pt["kernel_ms"], "plain_ms": pt["plain_ms"],
+         "bound_ms": pt["bound_ms"], "bound_by": pt["bound_by"],
+         "library_ms": None,
+         "attend_only_sdpa_ms": pt["attend_only_sdpa_ms"],
+         "shapes": {f"{t['cell']} {t['shape']}": {
+             k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                               "attend_only_sdpa_ms")}
+             for t in pa["timing"]}},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
   decode_attention — the fused decode-attention step (serving);
+  prefill_attention — the prompt's causal attention (serving prefills);
   daxpy            — ``a*x + y``, the paper's offloaded kernel;
   fused_adamw      — the AdamW update (training);
   ops              — any-shape wrappers and the ``KERNELS`` registry;

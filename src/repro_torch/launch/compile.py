@@ -57,6 +57,7 @@ from torch.utils import _pytree as pytree
 _COUNTED_KERNELS = (("decode_attention", "decode_attention", "LAUNCHES"),
                     ("decode_attention_shard", "decode_attention",
                      "SHARD_LAUNCHES"),
+                    ("prefill_attention", "prefill_attention", "LAUNCHES"),
                     ("daxpy", "daxpy", "LAUNCHES"),
                     ("fused_adamw", "fused_adamw", "LAUNCHES"))
 

@@ -47,6 +47,9 @@ from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   live_slots, quantize_kv,
                                                   shard_softmax_pv,
                                                   write_slots)
+from repro_torch.kernels.prefill_attention import (
+    prefill_attention, prefill_attention_plain as chunked_attention,
+    takes as prefill_attention_takes)
 from repro_torch.runtime.flags import baseline_mode
 
 from .config import ModelConfig
@@ -304,6 +307,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Attention (GQA, causal, optional sliding window, flash-style chunking)
 # --------------------------------------------------------------------------- #
+# ``chunked_attention`` is ``kernels.prefill_attention``'s plain version
+# (``prefill_attention_plain``), kept under the reference's name:
+# ``attention_block`` resolves it here at each call.
 def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, S, K, D) -> (B, S, H, D), each KV head repeated H/K times in
     K-major order (q head h reads KV head h // rep)."""
@@ -311,56 +317,6 @@ def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     if rep == 1:
         return k
     return torch.repeat_interleave(k, rep, dim=2)
-
-
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      q_offset: int = 0, window: int = 0,
-                      kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal GQA attention with online softmax over KV chunks.
-
-    q (B, Sq, H, D), k/v (B, Skv, K, D).  Grouped K-major GQA: q head h
-    reads kv head ``h // (H/K)`` without materialising repeated KV.
-    """
-    b, sq, h, d = q.shape
-    skv, kh = k.shape[1], k.shape[2]
-    g = h // kh
-    qg = q.reshape(b, sq, kh, g, d).float()
-    scale = 1.0 / math.sqrt(d)
-
-    kv_chunk = min(kv_chunk, skv)  # never pad beyond the sequence
-    n_chunks = -(-skv // kv_chunk)
-    pad = n_chunks * kv_chunk - skv
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    dev = q.device
-    q_pos = q_offset + torch.arange(sq, device=dev)
-
-    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=dev)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
-    lse = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
-    for j in range(n_chunks):
-        kj = k[:, j * kv_chunk:(j + 1) * kv_chunk]
-        vj = v[:, j * kv_chunk:(j + 1) * kv_chunk]
-        kv_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj.float()) * scale
-        s = s.reshape(b, h, sq, kv_chunk)
-        mask = kv_pos[None, :] <= q_pos[:, None]  # causal
-        mask &= kv_pos[None, :] < skv             # padding
-        if window:
-            mask &= kv_pos[None, :] > q_pos[:, None] - window
-        s = torch.where(mask[None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        lse = lse * corr + p.sum(dim=-1)
-        pv = torch.einsum(
-            "bkgqs,bskd->bqkgd",
-            p.reshape(b, kh, g, sq, kv_chunk).to(vj.dtype).float(), vj.float())
-        acc = acc * corr.transpose(1, 2)[..., None] + pv.reshape(b, sq, h, d)
-        m = m_new
-    out = acc / torch.clamp_min(lse, 1e-30).transpose(1, 2)[..., None]
-    return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -497,7 +453,9 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
                 c[f"{name}_scale"][:, :n] = sc
             else:
                 c[name][:, :n] = val.to(c[name].dtype)
-        out = attend(q, k, v)
+        # One device: the prefill-attention kernel, where it takes the call.
+        out = (prefill_attention(q, k, v, window=window)
+               if _prefill_kernel(q, k, v, ctx) else attend(q, k, v))
         new_cache = dict(cache, len=cache["len"] + s)
     else:
         # Per-slot decode: each row writes its new token at its own
@@ -537,6 +495,15 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         out = ctx.constrain(out, ctx.dp, None, None, None)
     out = out.reshape(b, s, cfg.num_heads * hd)
     return ctx.constrain(out @ p["wo"], ctx.dp, None, None), new_cache
+
+
+def _prefill_kernel(q, k, v, ctx: ShardCtx) -> bool:
+    """Whether a prefill's attention runs the prefill-attention kernel: on
+    one device (no active mesh), for a call the kernel takes (CUDA
+    tensors, its dtypes and head dims: ``prefill_attention.takes``).  The
+    train step (no cache), a mesh's prefill and everything else run
+    ``chunked_attention``."""
+    return not ctx.active and prefill_attention_takes(q, k, v)
 
 
 def _write_new_token(c: dict, k, v, write, dtype):
