@@ -42,13 +42,13 @@ def readings(root: Path, workload: str, seeds: list[int], seconds: float,
 
     cell = harness.Cell.load(root, workload)
     m, mix = cell.model, cell.mix
-    ref = cell.family("reference")
+    ref, layout = cell.family("reference"), cell.family("layouts")
     harness.build_kernels(dev)
-    weights = draw(m, seeds[0], dev)
+    weights = draw(m, seeds[0], dev, layout)
     engine = harness.build_engine(cell, weights, dev)
     for n, seed in enumerate(seeds):
         t0 = time.perf_counter()
-        fill(weights, m, seed)
+        fill(weights, m, seed, layout)
         requests = harness.requests_for(mix, seed, m["vocab_size"])
         timed, batcher, drained = harness.serve_window(engine, requests,
                                                        seconds)

@@ -89,3 +89,16 @@ def decode_attention_bytes_ops(m: dict, lens, slots: int) -> tuple[int, int]:
               + b * h * hd * e * 2 + b * kh * hd * e * 2 + b * (2 * w * 4 + 4))
     ops = 4 * h * hd * live
     return m["num_layers"] * nbytes, m["num_layers"] * ops
+
+
+def prefill_attention_bytes_ops(m: dict, batch: int,
+                                length: int) -> tuple[int, int]:
+    """The prefill-attention calls of one prefill of ``batch`` rows of
+    ``length`` tokens, every layer: q, k and v read and the output written
+    once; the operations of q.k and p@v, each position over its whole
+    causal prefix, in every row, the rows the program throws away too (the
+    kernel computes them)."""
+    h, kh, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    nbytes = batch * length * (2 * h + 2 * kh) * hd * elem(m)
+    ops = 4 * batch * h * hd * length * (length + 1) // 2
+    return m["num_layers"] * nbytes, m["num_layers"] * ops

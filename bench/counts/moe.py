@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from bench.counts.dense import (attn_flops, attn_params,  # noqa: F401
                                 decode_attention_bytes_ops, elem, head_flops,
-                                kv_bytes_per_slot)
+                                kv_bytes_per_slot,
+                                prefill_attention_bytes_ops)
 
 
 def ffn_params_per_token(m: dict) -> int:

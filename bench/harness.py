@@ -3,8 +3,9 @@
 Everything that belongs to one configuration, traffic mix or metric is
 found by name: ``BENCHMARK.json``'s configuration ``file``,
 ``bench/traffic/<mix>.json``, ``bench/metrics/<metric>.py``,
-``bench/reference/<family>.py``, ``bench/counts/<family>.py`` and
-``bench/limits/<cell>.json``, all under ``root`` (the checkout).
+``bench/layouts/<family>.py``, ``bench/reference/<family>.py``,
+``bench/counts/<family>.py`` and ``bench/limits/<cell>.json``, all under
+``root`` (the checkout).
 
 Set-up (``setup_s``, from the process's start): the kernels built, the
 weights drawn on the device from the seed, one ``ServingEngine`` with the
@@ -80,8 +81,11 @@ class Cell:
 
     def family(self, kind: str):
         fam = self.model["family"]
-        return load_module(self.root / "bench" / kind / f"{fam}.py",
-                           f"bench_{kind}_{fam}")
+        path = self.root / "bench" / kind / f"{fam}.py"
+        if not path.is_file():
+            raise FileNotFoundError(f"family {fam!r} has no {kind} file: "
+                                    f"bench/{kind}/{fam}.py")
+        return load_module(path, f"bench_{kind}_{fam}")
 
     def lists(self, metric: dict) -> bool:
         return self.workload["name"] in metric.get("workloads", ())
@@ -156,14 +160,19 @@ class RunData:
         return calls, gaps, seconds
 
 
-def build_engine(cell: Cell, weights, dev):
+def model_config(m: dict):
+    """The program's ``ModelConfig`` of a configuration file's model."""
     from repro_torch.models.config import ModelConfig
-    from repro_torch.serve.batcher import ServingEngine
-    m, mix = cell.model, cell.mix
     names = {f.name for f in dataclasses.fields(ModelConfig)}
-    cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
-                         for k, v in m.items() if k in names})
-    engine = ServingEngine(cfg, reduced=False, max_batch=mix["slots"],
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in m.items() if k in names})
+
+
+def build_engine(cell: Cell, weights, dev):
+    from repro_torch.serve.batcher import ServingEngine
+    mix = cell.mix
+    engine = ServingEngine(model_config(cell.model), reduced=False,
+                           max_batch=mix["slots"],
                            max_len=traffic.max_len(mix), fused_decode=True,
                            params=weights, device=dev)
     engine.warmup(sorted(set(mix["prompt_lens"])), slots=True)
@@ -245,8 +254,9 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     cell = Cell.load(root, workload)
     m, mix = cell.model, cell.mix
+    layout = cell.family("layouts")
     build_kernels(dev)
-    weights = draw(m, seed, dev)
+    weights = draw(m, seed, dev, layout)
     engine = build_engine(cell, weights, dev)
     requests = requests_for(mix, seed, m["vocab_size"])
     if fault is not None:

@@ -36,6 +36,7 @@ def test_benchmark_json_names_files_that_exist():
     for c in spec["configs"]:
         cfg = json.loads((REPO / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
+        assert (bench / "layouts" / f"{cfg['family']}.py").is_file()
         assert (bench / "reference" / f"{cfg['family']}.py").is_file()
         assert (bench / "counts" / f"{cfg['family']}.py").is_file()
     for w in spec["workloads"]:
@@ -183,7 +184,8 @@ def test_result_line_keys(root, name, trace):
     want = [m["name"] for m in spec["per_layer" if trace else "end_to_end"]]
     # The CPU has no device trace and no peaks: those readers are silent.
     cpu_silent = {"decode_step_bw_pct", "decode_attention_roofline",
-                  "device_idle_pct", "serve_mfu_pct"}
+                  "device_idle_pct", "serve_mfu_pct",
+                  "prefill_attention_roofline"}
     assert set(result["metrics"]) == set(want) - cpu_silent
     for v in result["metrics"].values():
         assert set(v) == {"value", "unit"} and v["value"] > 0
@@ -244,8 +246,9 @@ QWEN = json.loads(
 
 def test_configurations_hold_the_published_parameter_counts():
     from bench.weights import param_count
-    assert param_count(GLM) == 6_243_454_976
-    assert param_count(QWEN) == 30_532_634_624      # 152,064 padded rows
+    assert param_count(GLM, testkit.layout(GLM)) == 6_243_454_976
+    # 152,064 padded rows
+    assert param_count(QWEN, testkit.layout(QWEN)) == 30_532_634_624
 
 
 def test_dense_counts_by_hand():
@@ -295,7 +298,7 @@ def test_replay_follows_the_slots(root):
     every finished request's output is the tokens its calls returned."""
     cell = harness.Cell.load(root, "tiny-dense")
     from bench.weights import draw
-    weights = draw(cell.model, 3, CPU)
+    weights = draw(cell.model, 3, CPU, cell.family("layouts"))
     engine = harness.build_engine(cell, weights, CPU)
     reqs = harness.requests_for(cell.mix, 3, cell.model["vocab_size"])
     timed, batcher, drained = harness.serve_window(engine, reqs,

@@ -36,7 +36,7 @@ def test_prefill_rows_match_the_program(name, ref):
     one call (for the MoE: one capacity over all of them, a row of zeros
     among them as the slot prefill's free rows hold)."""
     m = testkit.TINY[name]
-    cfg, w = model_config(m), draw(m, 11, "cpu")
+    cfg, w = model_config(m), draw(m, 11, "cpu", testkit.layout(m))
     toks = tokens(3, 12, m["vocab_size"], 1)
     toks[1] = 0
     got = forward(w, cfg, tokens=toks)[:, -1, :m["vocab_size"]]
@@ -56,7 +56,7 @@ def test_decode_steps_match_the_program(name, ref):
     """A prefill into the cache then decode steps, one token per row per
     step, against the reference's prefill and extension."""
     m = testkit.TINY[name]
-    cfg, w = model_config(m), draw(m, 12, "cpu")
+    cfg, w = model_config(m), draw(m, 12, "cpu", testkit.layout(m))
     b, s, n = 2, 8, 5
     assert ref_moe.decode_drops_nothing(dict(testkit.TINY["tiny-moe"]), b)
     toks = tokens(b, s, m["vocab_size"], 2)
@@ -79,7 +79,7 @@ def test_moe_capacity_drops_as_the_program_does():
     """With a capacity factor small enough to drop copies, the coupled
     reference still follows the program; run row by row it does not."""
     m = dict(testkit.TINY["tiny-moe"], capacity_factor=0.5)
-    cfg, w = model_config(m), draw(m, 13, "cpu")
+    cfg, w = model_config(m), draw(m, 13, "cpu", testkit.layout(m))
     toks = tokens(4, 10, m["vocab_size"], 4)
     got = forward(w, cfg, tokens=toks)[:, -1, :m["vocab_size"]]
     none = torch.zeros(0, dtype=torch.long)

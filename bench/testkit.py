@@ -4,6 +4,7 @@ its own, whose configurations are narrow versions of the two families."""
 
 from __future__ import annotations
 
+import importlib
 import json
 import shutil
 from pathlib import Path
@@ -31,11 +32,23 @@ TINY = {
 # token at some position of every seed's sample.
 TINY["tiny-dense-v1024"] = dict(TINY["tiny-dense"], name="tiny-dense-v1024",
                                 vocab_size=1024)
+# A mixed layer stack: two groups of (local, local, attn) and a tail of one
+# local block; and the same with the embedding tied to the LM head.
+TINY["tiny-mixed"] = dict(TINY["tiny-dense"], name="tiny-mixed", num_layers=7,
+                          pattern=["local", "local", "attn"],
+                          sliding_window=8)
+TINY["tiny-mixed-tied"] = dict(TINY["tiny-mixed"], name="tiny-mixed-tied",
+                               tie_embeddings=True)
 MIX = {"why": "test", "slots": 2, "prompt_lens": [8, 16], "gen_lens": [4, 8],
        "requests": 400, "arrival": "backlog"}
 LIMIT = 1e-3       # float32 program against the float32 reference: the
 SHARE = 0.05       # widest gap, and the share of tokens off at near-ties
 SECONDS = 3.0      # a tiny cell's window: tens of finished requests
+
+
+def layout(m: dict):
+    """The layout module of configuration ``m``'s family."""
+    return importlib.import_module(f"bench.layouts.{m['family']}")
 
 
 def make_root(tmp: Path, configs=("tiny-dense", "tiny-moe"), dtype=None,
