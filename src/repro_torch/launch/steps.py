@@ -221,7 +221,8 @@ def make_slot_prefill_step(cfg: ModelConfig, batch_size: int, *,
     ``slot_mask`` rows are merged into ``live_caches``, in place, so rows
     of running requests keep their KV state bit for bit.  On a mesh the
     live caches are DTensors placed by ``cache_specs``; the slot mask is
-    replicated.
+    replicated.  The LM head runs on the last position alone, the one
+    whose token the step returns.
     """
     ctx = _ctx(mesh)
 
@@ -229,7 +230,7 @@ def make_slot_prefill_step(cfg: ModelConfig, batch_size: int, *,
         batch = _placed_batch(batch, mesh)
         fresh = _fresh_caches(cfg, batch_size, max_len, device, mesh)
         logits, fresh = model_prefill(params, cfg, caches=fresh, ctx=ctx,
-                                      **_model_inputs(batch))
+                                      last_only=True, **_model_inputs(batch))
         with ctx.scope():
             last = logits[:, -1]
             merged = merge_cache_slots(live_caches, fresh, slot_mask)

@@ -2,7 +2,11 @@
 
 A copy of ``repro/models/config.py``: the same frozen ``ModelConfig``,
 ``BLOCK_KINDS`` and ``scaled_down``, so a config built by either package
-compares equal field by field (``dataclasses.asdict``).
+compares equal on every field the reference has.  The port adds what
+granite-4.0-h's hybrid stack needs (a Mamba2 mixer followed by an MoE
+FFN, NoPE attention, a shared expert, the conv bias and four scalar
+multipliers); each new field defaults to a neutral value that leaves the
+reference's configurations, and the work their steps do, unchanged.
 
 The layer stack is described by ``pattern``: one repeating *group* of block
 kinds. ``num_layers = len(pattern) * full_groups + len(tail)`` — parameters
@@ -20,7 +24,12 @@ BLOCK_KINDS = (
     "attn_moe",      # global attention + MoE FFN
     "mamba",         # Mamba2 (SSD) block
     "shared_attn",   # hybrid: invoke the single shared transformer block
+    "mamba_moe",     # Mamba2 (SSD) mixer + MoE FFN (granite-4.0-h)
 )
+#: The block kinds whose mixer is a Mamba2 SSD (an SSM and a conv cache).
+MAMBA_KINDS = ("mamba", "mamba_moe")
+#: The block kinds whose FFN is the MoE.
+MOE_KINDS = ("attn_moe", "mamba_moe")
 
 
 @dataclass(frozen=True)
@@ -35,7 +44,8 @@ class ModelConfig:
     num_heads: int = 0
     num_kv_heads: int = 0
     head_dim: int = 0              # 0 => d_model // num_heads
-    rope_variant: str = "full"     # full | half (ChatGLM 2D) | mrope (Qwen2-VL)
+    rope_variant: str = "full"     # full | half (ChatGLM 2D) | mrope
+    #                                (Qwen2-VL) | none (NoPE)
     rope_theta: float = 10_000.0
     mrope_sections: tuple[int, ...] = ()   # half-dims per (t, h, w) stream
     sliding_window: int = 0        # window for "local" blocks
@@ -49,6 +59,7 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     moe_groups: int = 1            # routing groups (>= #shards at scale)
     capacity_factor: float = 1.25
+    shared_expert_ff: int = 0      # a shared gated expert of this width
     # SSM (Mamba2 / SSD).
     ssm_state: int = 0
     ssm_heads: int = 0
@@ -56,6 +67,7 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 128
     conv_width: int = 4
+    conv_bias: bool = False
     # Misc.
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -68,6 +80,12 @@ class ModelConfig:
     dtype: str = "bfloat16"
     frontend: str = ""             # "" | audio_frames | vision_patches
     max_seq_len: int = 131_072
+    # Granite's scalar multipliers; the defaults change nothing (and add
+    # no operation).  ``attention_multiplier`` 0 is 1/sqrt(head_dim).
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
 
     # ------------------------------------------------------------------ #
     def __post_init__(self):
@@ -106,7 +124,7 @@ class ModelConfig:
 
     @property
     def has_attention(self) -> bool:
-        return any(k != "mamba" for k in self.pattern)
+        return any(k not in MAMBA_KINDS for k in self.pattern)
 
     @property
     def uses_shared_block(self) -> bool:
@@ -139,16 +157,19 @@ class ModelConfig:
         per_kind["attn"] = attn_p + mlp_p + 2 * d
         per_kind["local"] = per_kind["attn"]
         moe_f = f  # assigned configs quote per-expert d_ff
-        per_kind["attn_moe"] = (attn_p + d * self.num_experts
-                                + self.num_experts * d * moe_f
-                                * (3 if self.gated_mlp else 2) + 2 * d)
+        moe_p = (d * self.num_experts
+                 + self.num_experts * d * moe_f * (3 if self.gated_mlp else 2)
+                 + 3 * d * self.shared_expert_ff)      # the shared expert
+        per_kind["attn_moe"] = attn_p + moe_p + 2 * d
         di, ns, nh = self.d_inner, self.ssm_state, self.ssm_num_heads
         g_bc = 2 * ns  # single B/C group
         per_kind["mamba"] = (d * (2 * di + g_bc + nh)  # w_z/w_x/w_bc/w_dt
-                             + self.conv_width * (di + g_bc)
+                             + (self.conv_width + self.conv_bias)
+                             * (di + g_bc)              # conv (+ bias)
                              + 3 * nh                   # A_log, D, dt_bias
                              + di                        # gated norm
                              + di * d + d)               # out_proj + norm
+        per_kind["mamba_moe"] = per_kind["mamba"] + moe_p + d
         per_kind["shared_attn"] = 0  # counted once below
         counts = {}
         for k in self.pattern:
@@ -168,21 +189,11 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: only top-k experts count)."""
-        if self.num_experts == 0:
-            return self.param_count()
-        dense_like = replace(
-            self,
-            pattern=tuple("attn" if k == "attn_moe" else k
-                          for k in self.pattern),
-            num_experts=0, num_experts_per_tok=0,
-            d_ff=self.d_ff * self.num_experts_per_tok,
-        )
-        # router params
-        n = dense_like.param_count()
-        moe_layers = sum(1 for k in self.pattern if k == "attn_moe") \
-            * self.full_groups + sum(1 for k in self.tail if k == "attn_moe")
-        n += moe_layers * self.d_model * self.num_experts
-        return n
+        moe_layers = sum(1 for k in self.pattern if k in MOE_KINDS) \
+            * self.full_groups + sum(1 for k in self.tail if k in MOE_KINDS)
+        idle = (self.num_experts - self.num_experts_per_tok) * self.d_model \
+            * self.d_ff * (3 if self.gated_mlp else 2)
+        return self.param_count() - moe_layers * idle
 
 
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -203,6 +214,7 @@ def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:
         ssm_heads=0,
         ssm_head_dim=16,
         ssm_chunk=8,
+        shared_expert_ff=128 if cfg.shared_expert_ff else 0,
         sliding_window=8 if cfg.sliding_window else 0,
         mrope_sections=(4, 2, 2) if cfg.rope_variant == "mrope" else (),
         max_seq_len=256,

@@ -272,8 +272,16 @@ def rope_cos_sin(positions: torch.Tensor, d: int, cfg: ModelConfig,
 
     All three variants collapse to one rotation of the leading ``2 * W``
     dims, which is what the fused decode kernel takes: W is ``d // 4`` for
-    ChatGLM's "half" variant and ``d // 2`` otherwise.
+    ChatGLM's "half" variant and ``d // 2`` otherwise.  NoPE ("none")
+    gives the identity rotation (cos 1, sin 0), which the kernel applies
+    exactly.
     """
+    if cfg.rope_variant == "none":
+        shape = (*positions.shape, d // 2)
+        return (torch.ones(shape, dtype=torch.float32,
+                           device=positions.device),
+                torch.zeros(shape, dtype=torch.float32,
+                            device=positions.device))
     if cfg.rope_variant == "half":
         # ChatGLM 2D-RoPE: rotary on the first half of the head dim only.
         return _rope_angles(positions, d // 4, cfg.rope_theta)
@@ -401,12 +409,16 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         return y if split_kv else ctx.constrain(y, ctx.dp, None, None, None)
 
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    if cfg.attention_multiplier:
+        # A softmax scale other than 1/sqrt(D), folded into q: every
+        # attention path (the kernels too) then applies its own 1/sqrt(D).
+        q = q * (cfg.attention_multiplier * math.sqrt(hd))
     k, v = kv(p["wk"]), kv(p["wv"])
     q = ctx.constrain(q, ctx.dp, None, ctx.tp, None)
     if gather_heads:
         q = ctx.constrain(q, ctx.dp, None, None, None)
     use_fused = fused and cache is not None and s == 1
-    if not use_fused:
+    if not use_fused and cfg.rope_variant != "none":
         # The fused kernel rotates q/k itself from precomputed angles.
         k = apply_rope(k, positions, cfg)
         q = apply_rope(q, positions, cfg)
@@ -652,7 +664,9 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     capacity; with one group, every row of the batch competes for the same
     slots, as in the reference.  On a mesh the groups shard over every
     axis for routing and the experts over the model axis for the FFN, at
-    the reference's constraint points.
+    the reference's constraint points.  A ``"shared"`` expert (a gated MLP
+    every token runs, ``cfg.shared_expert_ff`` wide) adds its output to the
+    routed experts'.
     """
     b, s, d = x.shape
     e, k, g = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_groups
@@ -675,7 +689,7 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         rows = e * cap + 1
         base = torch.arange(g, device=xg.device)[:, None]
         xrep = xg[:, :, None].expand(g, tg, k, d)             # (G, Tg, K, d)
-        buf = xg.new_zeros((g * rows, d)).index_add(
+        buf = xg.new_zeros((g * rows, d)).index_add_(
             0, (dst + base * rows).reshape(-1), xrep.reshape(-1, d))
         return (buf.reshape(g, rows, d)[:, :-1].reshape(g, e, cap, d),
                 gates, dst, keep)
@@ -708,16 +722,30 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     y_e = _expert_einsum(ctx, "gecf,efd->gecd", h, p["w_out"])
     y_e = ctx.constrain(y_e, ctx.dp, ctx.tp, None, None)
     y_e = ctx.constrain(y_e, all_axes, None, None, None)   # xg's placements
+    # The dispatch buffer and the slots' hidden values are dead once the
+    # experts have run: freed before the combine's copies are made (a long
+    # prefill's largest transients).
+    del buf, h
     y = _on_local_blocks(ctx, combine, (y_e, gates, dst, keep))
     # Groups back over the data axes alone before they merge into rows,
     # which the model axis does not split.
     y = ctx.constrain(y, ctx.dp, None, None)
-    return ctx.constrain(y.reshape(b, s, d), ctx.dp, None, None)
+    y = ctx.constrain(y.reshape(b, s, d), ctx.dp, None, None)
+    if "shared" in p:
+        y = y + mlp_block(x, p["shared"], cfg, ctx=ctx)
+    return y
 
 
 # --------------------------------------------------------------------------- #
 # Mamba2 (state-space duality, chunked)
 # --------------------------------------------------------------------------- #
+#: The most bytes one pass of the SSD's intra-chunk term may give its f32
+#: (B, chunks, H, Q, Q) decays: a longer call runs the term over slices of
+#: its chunks, so that a long prefill's transients stay within a few GiB
+#: (granite-4.0-h at 4 x 4096: 2.1 GB a tensor whole, 0.5 GB a slice).
+SSD_SLICE_BYTES = 1 << 29
+
+
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """x (..., Q) -> (..., Q, Q) lower-triangular segment sums (-inf above
     the diagonal): the reference's difference of cumulative sums."""
@@ -739,11 +767,19 @@ def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, bmat: torch.Tensor,
     bmat/cmat (B, T, N); init_state (B, H, P, N).  Returns (y (B, T, H, P),
     final_state (B, H, P, N)), both in x's dtype.  The decays and the C.B
     product are f32; the state runs in x's dtype, as in the reference.
+    A T that is not a multiple of ``chunk`` pads the last chunk with x = 0
+    and dt = 0, positions that leave the state as it is (decay 1, no
+    input), and drops their outputs.
     """
     b, t, h, pdim = x.shape
     n = bmat.shape[-1]
     if t % chunk:
-        raise ValueError(f"T ({t}) must divide chunk ({chunk})")
+        pad = chunk - t % chunk
+        y, state = ssd_chunked(
+            *(F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+              for a in (x, dt_a, bmat, cmat)),
+            chunk=chunk, init_state=init_state)
+        return y[:, :t], state
     c = t // chunk
     xr = x.reshape(b, c, chunk, h, pdim)
     ar = dt_a.reshape(b, c, chunk, h).float()
@@ -751,11 +787,18 @@ def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, bmat: torch.Tensor,
     cr = cmat.reshape(b, c, chunk, n)
 
     a_cum = torch.cumsum(ar, dim=2)                           # (B,C,Q,H)
-    # Intra-chunk (quadratic) term.
-    decay = torch.exp(_segsum(ar.transpose(2, 3)))            # (B,C,H,Q,Q)
-    cb = torch.einsum("bcqn,bckn->bcqk", cr.float(), br.float())
-    w = cb[:, :, None] * decay                                # (B,C,H,Q,Q)
-    y_intra = torch.einsum("bchqk,bckhp->bcqhp", w.to(x.dtype), xr)
+
+    def intra(sl):
+        # Intra-chunk (quadratic) term of the chunks ``sl``.
+        decay = torch.exp(_segsum(ar[:, sl].transpose(2, 3)))  # (B,c,H,Q,Q)
+        cb = torch.einsum("bcqn,bckn->bcqk", cr[:, sl].float(),
+                          br[:, sl].float())
+        w = cb[:, :, None] * decay                            # (B,c,H,Q,Q)
+        return torch.einsum("bchqk,bckhp->bcqhp", w.to(x.dtype), xr[:, sl])
+
+    per = max(1, SSD_SLICE_BYTES // (b * h * chunk * chunk * 4))
+    y_intra = (intra(slice(None)) if per >= c else torch.cat(
+        [intra(slice(i, i + per)) for i in range(0, c, per)], dim=1))
 
     # Per-chunk input state.
     decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)     # (B,C,Q,H)
@@ -815,6 +858,7 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     ``len``) and is written in place: a prefill (S > 1) stores the final
     SSM state and the last W-1 conv inputs, a decode step (S == 1) runs
     the one-token recurrence ``S <- exp(dt*A) S + (dt*x) (x) B; y = C.S``.
+    A ``conv_bias`` leaf (C,) is added to the conv's output before SiLU.
     """
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
@@ -840,7 +884,10 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         conv_out, new_conv = _on_local_blocks(
             ctx, lambda c, w: _causal_conv(c, w, None)[0],
             (conv_in, p["w_conv"])), None
-    conv_out = F.silu(conv_out.float()).to(x.dtype)
+    conv_out = conv_out.float()
+    if "conv_bias" in p:
+        conv_out = conv_out + p["conv_bias"].float()
+    conv_out = F.silu(conv_out).to(x.dtype)
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
 
     a = -torch.exp(p["a_log"].float())                        # (H,)

@@ -28,6 +28,7 @@ leaf's gradient.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -36,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.device import resolve_device
 
-from .config import ModelConfig
+from .config import MAMBA_KINDS, ModelConfig
 from .layers import (NO_SHARD, ShardCtx, attention_block, mamba_block,
                      mlp_block, moe_block, rms_norm)
 
@@ -111,10 +112,14 @@ def _init_mlp(ini: _Init, cfg: ModelConfig) -> dict:
 def _init_moe(ini: _Init, cfg: ModelConfig) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {"w_router": ini.normal((d, e), s_in, torch.float32),
-            "w_gate": ini.normal((e, d, f), s_in),
-            "w_in": ini.normal((e, d, f), s_in),
-            "w_out": ini.normal((e, f, d), s_out)}
+    p = {"w_router": ini.normal((d, e), s_in, torch.float32),
+         "w_gate": ini.normal((e, d, f), s_in),
+         "w_in": ini.normal((e, d, f), s_in),
+         "w_out": ini.normal((e, f, d), s_out)}
+    if cfg.shared_expert_ff:
+        p["shared"] = _init_mlp(ini, dataclasses.replace(
+            cfg, d_ff=cfg.shared_expert_ff, gated_mlp=True))
+    return p
 
 
 def _init_mamba(ini: _Init, cfg: ModelConfig) -> dict:
@@ -127,6 +132,8 @@ def _init_mamba(ini: _Init, cfg: ModelConfig) -> dict:
             "w_dt": ini.normal((d, h), s),
             "w_conv": ini.normal((cfg.conv_width, di + 2 * n),
                                  1.0 / math.sqrt(cfg.conv_width)),
+            **({"conv_bias": ini.zeros((di + 2 * n,))} if cfg.conv_bias
+               else {}),
             "a_log": ini.zeros((h,)),
             "dt_bias": ini.full((h,), -2.0),   # softplus ~= 0.12
             "d_skip": ini.full((h,), 1.0),
@@ -138,6 +145,9 @@ def _init_block(ini: _Init, kind: str, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     if kind == "mamba":
         return {"norm1": ini.zeros((d,)), "mamba": _init_mamba(ini, cfg)}
+    if kind == "mamba_moe":
+        return {"norm1": ini.zeros((d,)), "mamba": _init_mamba(ini, cfg),
+                "norm2": ini.zeros((d,)), "moe": _init_moe(ini, cfg)}
     if kind == "shared_attn":
         return {}   # the weights live once, in params["shared"]
     p = {"norm1": ini.zeros((d,)), "norm2": ini.zeros((d,)),
@@ -181,25 +191,35 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
                  shared=None, fused=False, ctx: ShardCtx = NO_SHARD):
     """One decoder block; returns (h, cache).  A ``shared_attn`` block runs
-    the ``shared`` attention block's weights."""
+    the ``shared`` attention block's weights.  Each branch's output joins
+    the residual times ``cfg.residual_multiplier``."""
     if kind == "shared_attn":
         bp, kind = shared, "attn"
     window = cfg.sliding_window if kind == "local" else 0
+    mixer_in = rms_norm(h, bp["norm1"], cfg.norm_eps)
+    if kind in MAMBA_KINDS:
+        m_out, new_cache = mamba_block(mixer_in, bp["mamba"], cfg,
+                                       cache=cache, ctx=ctx)
+    else:
+        m_out, new_cache = attention_block(mixer_in, bp["attn"], cfg,
+                                           positions=positions, window=window,
+                                           cache=cache, fused=fused, ctx=ctx)
+    h = _residual(h, m_out, cfg)
     if kind == "mamba":
-        m_out, new_cache = mamba_block(rms_norm(h, bp["norm1"], cfg.norm_eps),
-                                       bp["mamba"], cfg, cache=cache, ctx=ctx)
-        return h + m_out, new_cache
-    a_in = rms_norm(h, bp["norm1"], cfg.norm_eps)
-    a_out, new_cache = attention_block(a_in, bp["attn"], cfg,
-                                       positions=positions, window=window,
-                                       cache=cache, fused=fused, ctx=ctx)
-    h = h + a_out
+        return h, new_cache
     f_in = rms_norm(h, bp["norm2"], cfg.norm_eps)
     if "moe" in bp:
         f_out = moe_block(f_in, bp["moe"], cfg, ctx=ctx)
     else:
         f_out = mlp_block(f_in, bp["mlp"], cfg, ctx=ctx)
-    return h + f_out, new_cache
+    return _residual(h, f_out, cfg), new_cache
+
+
+def _residual(h, out, cfg: ModelConfig):
+    """``h + m * out`` with Granite's residual multiplier m; a multiplier
+    of 1 adds no operation."""
+    m = cfg.residual_multiplier
+    return h + (out if m == 1.0 else out * m)
 
 
 def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
@@ -243,11 +263,18 @@ def _run_stack(params, h, cfg: ModelConfig, *, positions, caches=None,
 # Forward (prefill)
 # --------------------------------------------------------------------------- #
 def embed_tokens(params, tokens: torch.Tensor,
+                 cfg: ModelConfig | None = None,
                  ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """The embedding rows of ``tokens``, times ``cfg``'s embedding
+    multiplier (none without ``cfg``, or at 1)."""
     if not ctx.active:
-        return params["embed"][tokens.long()]
-    return ctx.constrain(_embed_on_shards(params["embed"], tokens, ctx),
-                         ctx.dp, None, None)
+        h = params["embed"][tokens.long()]
+    else:
+        h = ctx.constrain(_embed_on_shards(params["embed"], tokens, ctx),
+                          ctx.dp, None, None)
+    if cfg is not None and cfg.embedding_multiplier != 1.0:
+        h = h * cfg.embedding_multiplier
+    return h
 
 
 def _embed_on_shards(table, tokens, ctx: ShardCtx):
@@ -308,9 +335,13 @@ def _grad_dtype_barrier(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
 def logits_from_hidden(params, h, cfg: ModelConfig,
                        ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     h = _grad_dtype_barrier(h, cfg.dtype)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps).float()
+    if cfg.logits_scaling != 1.0:
+        # Granite's logits divisor, taken on the hidden state: no second
+        # logits-sized tensor (exact for a power of two).
+        h = h / cfg.logits_scaling
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h.float() @ head.float()
+    logits = h @ head.float()
     if cfg.vocab_padded != cfg.vocab_size:
         # Mask padded vocabulary columns.
         pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab_size
@@ -322,7 +353,7 @@ def _hidden(params, cfg, tokens, embeds, ctx):
     if (tokens is None) == (embeds is None):
         raise ValueError("provide exactly one of tokens/embeds")
     if embeds is None:
-        return embed_tokens(params, tokens, ctx)
+        return embed_tokens(params, tokens, cfg, ctx)
     return ctx.constrain(embeds.to(_dtype(cfg.dtype)), ctx.dp, None, None)
 
 
@@ -381,10 +412,11 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None,
-            ctx: ShardCtx = NO_SHARD):
+            last_only: bool = False, ctx: ShardCtx = NO_SHARD):
     """Batched prefill: full-sequence forward that also fills ``caches``.
 
-    Returns (logits (B, S, V), caches).
+    Returns (logits (B, S, V), caches); with ``last_only`` the logits of
+    the last position alone, (B, 1, V): the head runs on that position.
     """
     with ctx.scope():
         h = _hidden(params, cfg, tokens, embeds, ctx)
@@ -392,6 +424,8 @@ def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None,
         positions = torch.arange(s, device=h.device)[None].expand(b, s)
         h, caches = _run_stack(params, h, cfg, positions=positions,
                                caches=caches, cache_len=0, ctx=ctx)
+        if last_only:
+            h = h[:, -1:]
         return logits_from_hidden(params, h, cfg, ctx), caches
 
 
@@ -401,7 +435,7 @@ def prefill(params, cfg: ModelConfig, *, caches, tokens=None, embeds=None,
 def _cache_entry(kind: str, cfg: ModelConfig, lead: tuple[int, ...],
                  batch: int, max_len: int, dt: torch.dtype,
                  device: torch.device) -> dict:
-    if kind == "mamba":
+    if kind in MAMBA_KINDS:
         # The SSM state accumulates over the whole sequence: kept in f32.
         h = cfg.ssm_num_heads
         return {"ssm": torch.zeros((*lead, batch, h, cfg.d_inner // h,
@@ -453,7 +487,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len, *,
     through the fused decode-attention kernel, one launch per layer.
     """
     with ctx.scope():
-        h = embed_tokens(params, tokens, ctx)
+        h = embed_tokens(params, tokens, cfg, ctx)
         b = tokens.shape[0]
         lens = torch.as_tensor(cache_len, dtype=torch.int32, device=h.device)
         if lens.ndim == 0:

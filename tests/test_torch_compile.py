@@ -364,8 +364,7 @@ def _public_names(path: Path, with_imports: bool) -> set[str]:
 #: and ``donate_argnums``; the Pallas kernels' ``interpret``, ``chunk`` and
 #: ``block_rows``, and AdamW's ``use_pallas`` (``use_kernel=``); a torch
 #: ``Generator`` seed for JAX's PRNG ``key``; ``train.build``'s batch
-#: shape and mesh, which the compiled step takes from its first call;
-#: ``embed_tokens`` reads the config from the params it is given.
+#: shape and mesh, which the compiled step takes from its first call.
 DELIBERATE_PARAMS = {
     "core/dispatch.py": {
         "MulticastDispatcher.put": {"shardings"},
@@ -386,7 +385,7 @@ DELIBERATE_PARAMS = {
         "bundle_for": {"unroll_groups"},
         "StepBundle": {"out_shardings", "donate_argnums"}},
     "launch/train.py": {"build": {"batch", "seq", "mesh_shape"}},
-    "models/model.py": {"init_params": {"key"}, "embed_tokens": {"cfg"},
+    "models/model.py": {"init_params": {"key"},
                         "forward": {"unroll_groups"}},
     "optim/adamw.py": {"adamw_update": {"use_pallas", "interpret"}},
 }

@@ -1,7 +1,8 @@
 """The port's configs, its reference-weight bridge, and its import hygiene.
 
   * every ``ARCH_IDS`` config, full and ``scaled_down``, equals the
-    reference's field by field;
+    reference's on every field the reference has, and holds the port's
+    own fields (granite-4.0-h's) at their neutral defaults;
   * the bridge (``repro_torch.models.convert``) carries f32 and bf16
     leaves across bit for bit and keeps the tree's nesting;
   * importing every ``repro_torch`` module loads neither ``jax`` nor
@@ -34,19 +35,32 @@ def test_arch_ids_match_reference():
     assert set(all_configs()) == set(ARCH_IDS)
 
 
+def _on_reference_fields(got, ref) -> dict:
+    """``got``'s fields that the reference's config has; the port's own
+    must hold their defaults."""
+    mine = dataclasses.asdict(got)
+    theirs = dataclasses.asdict(ref)
+    own = {f.name: f.default for f in dataclasses.fields(got)
+           if f.name not in theirs}
+    assert {k: mine[k] for k in own} == own
+    return {k: mine[k] for k in theirs}
+
+
 @pytest.mark.parametrize("arch", REF_ARCH_IDS)
 def test_config_asdict_equal_full_and_scaled_down(arch):
     ref, got = ref_get_config(arch), get_config(arch)
-    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(scaled_down(got)) == \
-        dataclasses.asdict(ref_scaled_down(ref))
+    assert _on_reference_fields(got, ref) == dataclasses.asdict(ref)
+    small, ref_small = scaled_down(got), ref_scaled_down(ref)
+    assert _on_reference_fields(small, ref_small) == \
+        dataclasses.asdict(ref_small)
     assert got.param_count() == ref.param_count()
     assert got.active_param_count() == ref.active_param_count()
 
 
 def test_config_validation_and_block_kinds_match_reference():
     from repro.models.config import BLOCK_KINDS as REF_KINDS
-    assert BLOCK_KINDS == REF_KINDS
+    assert BLOCK_KINDS[:len(REF_KINDS)] == REF_KINDS
+    assert BLOCK_KINDS[len(REF_KINDS):] == ("mamba_moe",)
     cfg = get_config("chatglm3-6b")
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, pattern=("nope",))

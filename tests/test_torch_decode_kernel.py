@@ -194,7 +194,9 @@ def test_attention_block_fused_flag_equivalence(quant, window, slots):
     h, kh, d, b = 4, 2, 16, 3
     rcfg = _tiny(RefModelConfig, h, kh, d, sliding_window=window)
     cfg = _tiny(ModelConfig, h, kh, d, sliding_window=window)
-    assert dataclasses.asdict(rcfg) == dataclasses.asdict(cfg)
+    ref_fields = dataclasses.asdict(rcfg)      # the port's own: defaults
+    assert {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k in ref_fields} == ref_fields
     dm = cfg.d_model
     rng = np.random.default_rng(3)
     p = {n: jnp.asarray(rng.standard_normal(shape) * 0.1, jnp.float32)

@@ -156,11 +156,18 @@ def test_ssd_chunked_matches_reference_and_recurrence(chunk, with_state):
     np.testing.assert_allclose(st.numpy(), state, rtol=1e-4, atol=1e-5)
 
 
-def test_ssd_chunked_refuses_a_ragged_chunk():
+def test_ssd_chunked_pads_a_ragged_chunk():
+    """A ragged last chunk is padded with positions that leave the state
+    as it is (x = 0, dt = 0): the outputs are those of a whole-chunk call
+    over a longer input."""
     x, dt_a, bm, cm, _ = _ssd_inputs(0, t=12)
-    with pytest.raises(ValueError, match="must divide chunk"):
-        layers.ssd_chunked(*map(torch.from_numpy, (x, dt_a, bm, cm)),
-                           chunk=8)
+    args = list(map(torch.from_numpy, (x, dt_a, bm, cm)))
+    y, state = layers.ssd_chunked(*args, chunk=8)
+    assert y.shape[1] == 12
+    longer = [torch.cat([a, torch.zeros_like(a[:, :4])], 1) for a in args]
+    y16, state16 = layers.ssd_chunked(*longer, chunk=8)
+    torch.testing.assert_close(y, y16[:, :12], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(state, state16, rtol=1e-6, atol=1e-6)
 
 
 def test_causal_conv_decode_steps_equal_prefill():
