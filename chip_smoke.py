@@ -8,7 +8,7 @@ printing a result:
 
   1. card: name and power limit (nvidia-smi), torch version; TF32 off;
   2. build: every CUDA kernel of the port (decode_attention,
-     prefill_attention, daxpy, fused_adamw), one nvcc each, all started together, from the sources
+     prefill_attention, moe_route, daxpy, fused_adamw), one nvcc each, all started together, from the sources
      here; each decode-attention kernel's SASS counted (``cuobjdump``:
      instructions, tensor-core HMMA, cp.async LDGSTS), the tensor-core
      build required to hold HMMA;
@@ -40,7 +40,15 @@ printing a result:
      (CUDA events, median, L2 flushed first) beside its bound, its plain
      version and an attend-only yardstick,
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-     (timed only; the port never calls it);
+     (timed only; the port never calls it); then the MoE router's
+     expert-slot kernel against its plain version, bit-equal, at
+     MOE_ROUTE_CASES (granite-4.0-h-small's 4096 refill and decode call,
+     qwen3-moe-30b-a3b's 8 x 512 refill and decode call, capacity factor
+     0.25, two routing groups, the tile's edges and a ragged last tile),
+     captured in a graph and replayed twice, bit-equal, one launch counted
+     per replay, and timed (CUDA events, median, L2 flushed first; and its
+     graph's replay) beside its bound and its plain version; the serving
+     engine's check above also counts it once per MoE layer per replay;
   4. time: kernels and plain version at the chatglm3-6b decode shape and
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
@@ -206,6 +214,10 @@ DAXPY_REPLACES = "src/repro/kernels/daxpy.py:35"
 ADAMW_SOURCE = "src/repro_torch/kernels/csrc/fused_adamw.cu"
 ADAMW_REPLACES = "src/repro/kernels/fused_adamw.py:52"
 PREFILL_SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
+MOE_ROUTE_SOURCE = "src/repro_torch/kernels/csrc/moe_route.cu"
+MOE_ROUTE_REPLACES = ("none: the reference ranks the copies with plain jnp "
+                      "(src/repro/models/layers.py, route_group's "
+                      "jnp.cumsum)")
 PREFILL_REPLACES = ("none: the reference's prefill attention is plain jnp "
                     "(src/repro/models/layers.py, chunked_attention)")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -386,6 +398,24 @@ PREFILL_EDGE_SHAPES = [("ragged", 4, 17, 32, 2, 128, 0),
                        ("window", 2, 700, 16, 2, 128, 100),
                        ("d64", 3, 333, 8, 1, 64, 0),
                        ("d256-window", 1, 200, 8, 2, 256, 50)]
+# The MoE router's expert slots: (tag, groups, tokens per group, experts per
+# token, experts, capacity factor); cap = max(ceil(tokens * k / E * cf), k)
+# (``models.layers.moe_capacity``).  The cells' refills and decode calls
+# (granite: 4 slots x 4096, qwen3-moe: 8 x 512), drops, two routing groups,
+# and the kernel's tiles of 2048 copies: one less, one, one more, ragged.
+MOE_ROUTE_CASES = [
+    ("granite-refill-4096", 1, 4 * 4096, 10, 72, 1.25),
+    ("qwen3-moe-refill-8x512", 1, 8 * 512, 8, 128, 1.25),
+    ("granite-decode", 1, 4, 10, 72, 1.25),
+    ("qwen3-moe-decode", 1, 8, 8, 128, 1.25),
+    ("overflow-cf0.25", 1, 8 * 512, 8, 128, 0.25),
+    ("two-groups", 2, 4 * 512, 8, 128, 1.25),
+    ("tile-less-one", 1, 2047, 1, 72, 1.25),
+    ("one-tile", 1, 2048, 1, 72, 1.25),
+    ("tile-plus-one", 1, 2049, 1, 72, 1.25),
+    ("ragged-last-tile", 1, 1000, 8, 128, 1.25),
+]
+MOE_ROUTE_TIMED = MOE_ROUTE_CASES[:4]
 
 
 def log(msg: str) -> None:
@@ -881,6 +911,141 @@ def phase_prefill_attention(dev) -> dict:
     return {"checks": checks, "timing": timing}
 
 
+def moe_layers(cfg) -> int:
+    """MoE FFNs in a stack: the router kernel's calls per step."""
+    from repro_torch.models.config import MOE_KINDS
+    return (sum(k in MOE_KINDS for k in cfg.pattern) * cfg.full_groups
+            + sum(k in MOE_KINDS for k in cfg.tail))
+
+
+def route_inputs(case, dev, seed=0):
+    """The experts ids (G, tokens * k) of ``case`` as the router picks
+    them (each token's k largest of E normal logits, each expert's logits
+    shifted by a bias of its own so that some are more popular; a
+    stable descending sort), drawn on the CPU; E; and the case's cap."""
+    import math
+
+    import torch
+    _, g, tokens, k, e, cf = case
+    gen = torch.Generator().manual_seed(seed)
+    logits = (torch.randn(g, tokens, e, generator=gen)
+              + 0.3 * torch.randn(e, generator=gen))
+    ids = torch.sort(logits, dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    cap = max(math.ceil(tokens * k / e * cf), k)
+    return ids.reshape(g, tokens * k).to(dev), e, cap
+
+
+def _slots_equal(tag: str, got, want) -> None:
+    import torch
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = (got[0] != want[0]) | (got[1] != want[1])
+        raise AssertionError(
+            f"moe_route {tag}: {int(bad.sum())} of {bad.numel()} copies "
+            f"differ from the plain version, the first at "
+            f"{bad.nonzero()[0].tolist()}")
+
+
+def check_moe_route(case, dev) -> dict:
+    """The router's expert-slot kernel against its plain version at
+    ``case``: dst and keep bit-equal, one launch counted."""
+    import torch
+    from repro_torch.kernels import moe_route as MR
+    ids, e, cap = route_inputs(case, dev)
+    before = MR.LAUNCHES
+    got = MR.expert_slots(ids, e, cap)
+    torch.cuda.synchronize()
+    if MR.LAUNCHES != before + 1:
+        raise AssertionError(f"moe_route {case[0]}: {MR.LAUNCHES - before} "
+                             "launches counted for one call")
+    _slots_equal(case[0], got, MR.expert_slots_plain(ids, e, cap))
+    return {"case": case[0], "groups": ids.shape[0], "copies": ids.shape[1],
+            "experts": e, "cap": cap, "dropped": int((~got[1]).sum())}
+
+
+def check_moe_route_captured(dev, case) -> dict:
+    """The router kernel inside a captured graph (a ``CompiledStep``): its
+    first call runs eagerly and captures, the second and third replay;
+    every call's dst and keep bit-equal to the plain version's, one launch
+    counted per call and per replay."""
+    import torch
+    from repro_torch.kernels import moe_route as MR
+    from repro_torch.launch.compile import CompiledStep
+    ids, e, cap = route_inputs(case, dev, seed=1)
+    step = CompiledStep(lambda ids: dict(zip(
+        ("dst", "keep"), MR.expert_slots(ids, e, cap))), device=dev,
+        name=f"moe_route-{case[0]}")
+    want = MR.expert_slots_plain(ids, e, cap)
+    for _ in range(3):
+        before = MR.LAUNCHES
+        got = step(ids)
+        torch.cuda.synchronize()
+        if MR.LAUNCHES - before != 1:
+            raise AssertionError(f"moe_route {case[0]}: "
+                                 f"{MR.LAUNCHES - before} launches counted "
+                                 "for one call")
+        _slots_equal(f"{case[0]} (compiled)", (got["dst"], got["keep"]),
+                     want)
+    [st] = step.stats()
+    if (not st["captured"] or st["calls"] != 3
+            or st["launches_per_replay"] != {"moe_route": 1}):
+        raise AssertionError(f"moe_route {case[0]}: {st}")
+    log(f"[capture] moe_route {case[0]} ({ids.shape[1]} copies): captured "
+        f"in {st['capture_s']:.3f} s and replayed twice, dst and keep "
+        "bit-equal to the plain version, one launch per replay")
+    return {"case": case[0], "capture_s": st["capture_s"]}
+
+
+def time_moe_route(case, dev) -> dict:
+    """The router kernel at ``case``: one call (CUDA events, median, L2
+    flushed first) and one replay of a graph holding the call, beside its
+    bound (ids read, dst and keep written once over the HBM rate) and its
+    plain version."""
+    import torch
+    from repro_torch.kernels import moe_route as MR
+    ids, e, cap = route_inputs(case, dev)
+    before = MR.LAUNCHES
+    kernel_ms = time_ms(lambda: MR.expert_slots(ids, e, cap), dev)
+    plain_ms = time_ms(lambda: MR.expert_slots_plain(ids, e, cap), dev,
+                       reps=20, warmup=3)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        MR.expert_slots(ids, e, cap)
+    graph_ms = time_ms(graph.replay, dev)
+    del graph
+    MR.LAUNCHES = before
+    g, n = ids.shape
+    nbytes = g * n * (8 + 8 + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"case": case[0], "shape": f"G={g} N={n} E={e} cap={cap}",
+            "kernel_ms": kernel_ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": nbytes, "launches": 1 if n <= MR.TILE else 2,
+            "l2": "flushed before each launch"}
+
+
+def phase_moe_route(dev) -> dict:
+    """The MoE router's expert-slot kernel against its plain version at
+    MOE_ROUTE_CASES, captured and replayed at a refill and a decode shape,
+    then timed at MOE_ROUTE_TIMED."""
+    checks = [check_moe_route(c, dev) for c in MOE_ROUTE_CASES]
+    for c in checks:
+        log(f"[check] moe_route {c['case']} (G={c['groups']}, "
+            f"{c['copies']} copies, E={c['experts']}, cap {c['cap']}): dst "
+            f"and keep bit-equal to the plain version, {c['dropped']} "
+            "copies dropped")
+    captured = [check_moe_route_captured(dev, c)
+                for c in (MOE_ROUTE_CASES[0], MOE_ROUTE_CASES[3])]
+    timing = [time_moe_route(c, dev) for c in MOE_ROUTE_TIMED]
+    card = card_line()
+    for t in timing:
+        log(f"[time] {card}: moe_route at {t['shape']} ({t['case']}, "
+            f"{t['launches']} launch(es)): kernel {t['kernel_ms']:.4f} ms, "
+            f"graph replay {t['graph_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms (bytes), plain {t['plain_ms']:.3f} ms")
+    return {"checks": checks, "captured": captured, "timing": timing}
+
+
 # --------------------------------------------------------------------------- #
 # Phases
 # --------------------------------------------------------------------------- #
@@ -1030,12 +1195,14 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     from repro_torch.configs import get_config
     from repro_torch.core.sync import credit_threshold
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import moe_route as MR
     from repro_torch.kernels import prefill_attention as PA
     from repro_torch.obs import Tracer
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
     cfg = get_config(arch)
     n_attn = attention_layers(cfg)
+    n_moe = moe_layers(cfg)
     tracer = Tracer()     # its wall-domain spans give the decode seconds
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
@@ -1045,7 +1212,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
                            else ([0], lambda: None))
     windows, undo_window = time_loop_runs()
     try:
-        DA.LAUNCHES = DA.SHARD_LAUNCHES = PA.LAUNCHES = 0
+        DA.LAUNCHES = DA.SHARD_LAUNCHES = PA.LAUNCHES = MR.LAUNCHES = 0
         t0 = time.perf_counter()
         out = serve_workload(stream_spec(requests), config=ServeConfig(
             arch=arch, reduced=False, fused_decode=True, fabric="wallclock",
@@ -1057,6 +1224,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
         launches, other = ((DA.SHARD_LAUNCHES, DA.LAUNCHES) if mesh is not None
                            else (DA.LAUNCHES, DA.SHARD_LAUNCHES))
         prefill_launches = PA.LAUNCHES
+        route_launches = MR.LAUNCHES
     finally:
         undo()
         undo_rec()
@@ -1084,6 +1252,10 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
                              f"times over {n_attn} attention layers "
                              f"(the route {'takes' if takes else 'skips'} "
                              "the kernel)")
+    # The router kernel: once per MoE layer of every step the engine runs.
+    if route_launches % max(n_moe, 1) or bool(route_launches) != bool(n_moe):
+        raise AssertionError(f"moe_route launched {route_launches} times over "
+                             f"{n_moe} MoE layers")
     # Every decode but the first warm-up one, which captures the graph.
     if sync_check and checked[0] != m.decode_jobs + n_lengths - 1:
         raise AssertionError(f"{checked[0]} decode steps ran under the sync "
@@ -1126,6 +1298,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
            "rejected": m.rejected, "completed": m.completed,
            "prefill_jobs": m.prefill_jobs, "decode_jobs": m.decode_jobs,
            "launches": launches, "prefill_launches": prefill_launches,
+           "moe_route_launches": route_launches,
            "credit_reads": len(reads), "decode_tokens": decode_tokens, "decode_s": decode_s,
            "prefill_s": prefill_s,
            "decode_tok_s": decode_tokens / decode_s,
@@ -1158,7 +1331,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     log(f"[{tag}] {card}: admitted {m.admitted}, rejected {m.rejected}, "
         f"completed {m.completed}; prefill jobs {m.prefill_jobs}, decode "
         f"jobs {m.decode_jobs}; {kernel}; prefill_attention launches "
-        f"{prefill_launches}; credit reads {len(reads)}/{n_reads} at threshold; "
+        f"{prefill_launches}; moe_route launches {route_launches}; credit reads {len(reads)}/{n_reads} at threshold; "
         f"{m.pipelined_prefills} pipelined prefills"
         + (f"; {checked[0]} replayed decode steps queued and awaited under "
            "set_sync_debug_mode('error')" if sync_check else ""))
@@ -1255,6 +1428,7 @@ def check_no_sync(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import moe_route as MR
     from repro_torch.serve.batcher import ServingEngine
 
     # The mode catches a blocking copy (else the check below proves nothing).
@@ -1281,7 +1455,7 @@ def check_no_sync(dev) -> dict:
                                                 mask)
         tok, caches, _ = eng.decode(tok[:, None], caches, lens)
         torch.cuda.synchronize()
-        DA.LAUNCHES = 0
+        DA.LAUNCHES = MR.LAUNCHES = 0
         torch.cuda.set_sync_debug_mode("error")
         try:
             pend = [eng.prefill_into_slots_async(tokens, caches, mask)]
@@ -1300,11 +1474,19 @@ def check_no_sync(dev) -> dict:
             raise AssertionError(f"{arch}: {DA.LAUNCHES} decode-kernel "
                                  f"launches for two replays ({per_replay} "
                                  f"per replay), expected 2 x {n_attn}")
+        # The router kernel: once per MoE layer in each of the three replays.
+        n_moe = moe_layers(eng.cfg)
+        if MR.LAUNCHES != 3 * n_moe or \
+                per_replay.get("moe_route", 0) != n_moe:
+            raise AssertionError(f"{arch}: {MR.LAUNCHES} moe_route launches "
+                                 f"for three replays ({per_replay} per "
+                                 f"decode replay), expected 3 x {n_moe}")
         res[arch] = {"steps_queued": len(pend), "replay_launches":
                      DA.LAUNCHES, "graphs": len(eng.compiled_steps())}
     log(f"[sync] prefill_into_slots_async and decode_async replayed their "
         f"graphs under set_sync_debug_mode('error') with no sync, the decode "
-        f"kernel counted once per attention layer per replay, on reduced "
+        f"kernel counted once per attention layer per replay and the router "
+        f"kernel once per MoE layer, on reduced "
         f"{', '.join(NO_SYNC_ARCHS)} (the mode raised on a deliberate "
         f"blocking copy first)")
     return res
@@ -1425,8 +1607,15 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
                          if r.state is RequestState.DONE}
         plans[name] = [(p.kind, p.n_elems, p.m) for p in out["plans"]]
         if comp:
-            compiled[name] = compile_report(engines, out["plans"],
-                                            f"{arch} {name}")
+            compiled[name] = report = compile_report(engines, out["plans"],
+                                                     f"{arch} {name}")
+            # The router kernel replays once per MoE layer in every step.
+            off = {k: v for k, v in report["launches_per_replay"].items()
+                   if v.get("moe_route", 0) != moe_layers(cfg)}
+            if off:
+                raise AssertionError(f"{arch} {name}: moe_route launches per "
+                                     f"replay {off}, expected "
+                                     f"{moe_layers(cfg)}")
         del out, engines
     if plans["fused"] != plans["unfused"] or not streams["fused"]:
         raise AssertionError(f"{arch}: the simulated schedule differs "
@@ -3489,6 +3678,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     # at the benchmark cells' prefill shapes.
     results["prefill_attention"] = pa = phase_prefill_attention(dev)
     free()
+    # The MoE router's expert-slot kernel: against its plain version,
+    # captured, then timed at the cells' refill and decode shapes.
+    results["moe_route"] = mr = phase_moe_route(dev)
+    free()
 
     # 4. Timing at the full decode shape.
     args, lens = make_inputs(FULL_CASE, 0, dev)
@@ -3744,6 +3937,17 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
              k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                "attend_only_sdpa_ms")}
              for t in pa["timing"]}},
+        {"name": "moe_route", "route": "cuda", "source": MOE_ROUTE_SOURCE,
+         "replaces": MOE_ROUTE_REPLACES,
+         "launches": results["moe_stream"]["moe_route_launches"],
+         "max_abs_err": 0,
+         "ms": mr["timing"][0]["kernel_ms"],
+         "plain_ms": mr["timing"][0]["plain_ms"],
+         "bound_ms": mr["timing"][0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "shapes": {t["case"]: {k: t[k] for k in (
+             "shape", "kernel_ms", "graph_ms", "plain_ms", "bound_ms")}
+             for t in mr["timing"]}},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

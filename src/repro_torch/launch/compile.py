@@ -58,6 +58,7 @@ _COUNTED_KERNELS = (("decode_attention", "decode_attention", "LAUNCHES"),
                     ("decode_attention_shard", "decode_attention",
                      "SHARD_LAUNCHES"),
                     ("prefill_attention", "prefill_attention", "LAUNCHES"),
+                    ("moe_route", "moe_route", "LAUNCHES"),
                     ("daxpy", "daxpy", "LAUNCHES"),
                     ("fused_adamw", "fused_adamw", "LAUNCHES"))
 

@@ -47,6 +47,7 @@ from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   live_slots, quantize_kv,
                                                   shard_softmax_pv,
                                                   write_slots)
+from repro_torch.kernels.moe_route import expert_slots
 from repro_torch.kernels.prefill_attention import (
     prefill_attention, prefill_attention_plain as chunked_attention,
     takes as prefill_attention_takes)
@@ -603,7 +604,8 @@ def moe_route(xg: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
     their softmax weights.  ``dst`` and ``keep`` (G, Tg*K) follow the
     token-major (token, k) order: ``dst`` is the copy's row in the
     (E*cap + 1)-row dispatch buffer, whose last row takes the copies that
-    overflow their expert's capacity (``keep`` False).
+    overflow their expert's capacity (``keep`` False); both come from
+    ``kernels.moe_route.expert_slots`` (the kernel on a CUDA device).
     """
     g, tg, _ = xg.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -615,13 +617,7 @@ def moe_route(xg: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
                                      stable=True)
     top_logits, top_ids = top_logits[..., :k], top_ids[..., :k]
     gates = torch.softmax(top_logits.float(), dim=-1)
-    ids = top_ids.reshape(g, tg * k)
-    # The one-hot in int32, as the reference's (F.one_hot gives int64).
-    oh = (ids[..., None] == torch.arange(e, device=xg.device)).to(torch.int32)
-    pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh     # rank in expert
-    posf = torch.gather(pos, 2, ids[..., None])[..., 0]
-    keep = posf < cap
-    dst = torch.where(keep, ids * cap + posf, e * cap)
+    dst, keep = expert_slots(top_ids.reshape(g, tg * k), e, cap)
     return top_ids, gates, dst, keep
 
 

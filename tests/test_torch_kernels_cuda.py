@@ -20,13 +20,22 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
     per-device shape) and over an empty last block: caches bit-exact
     against the plain version, out within ``TOL``, one block bit-equal to
     the whole-cache call;
+  * the MoE router's expert-slot kernel: dst and keep bit-equal to
+    ``expert_slots_plain`` at chip_smoke.py's ``MOE_ROUTE_CASES``
+    (granite-4.0-h-small's 4096 refill and decode call, qwen3-moe-30b-a3b's
+    8 x 512 refill and decode call, capacity factor 0.25, two routing
+    groups, one tile of copies less one, one, one more, a ragged last
+    tile); a captured call replayed twice, bit-equal, one launch counted
+    per replay; what it does not take raises;
   * the serving engine queues a prefill-into-slots step and decode steps
     with no host sync (``torch.cuda.set_sync_debug_mode("error")``): graph
-    replays, each adding its captured decode-kernel launches;
+    replays, each adding its captured decode-kernel launches and, on the
+    MoE, one router-kernel launch per MoE layer;
   * the engine's compiled steps (CUDA graphs) give the token streams of the
     same calls under ``disable_compile()`` (chatglm3-6b fused and unfused,
     qwen3-moe-30b-a3b, mamba2-370m, 2 layers at full width, f32), count
-    the decode kernel per replay, and a capture that fails raises;
+    the decode kernel per replay and the router kernel once per MoE layer
+    per replay, and a capture that fails raises;
   * the compiled train step (``launch.train.build``, chatglm3-6b at full
     width, 2 layers, f32): its replays, queued under
     ``set_sync_debug_mode("error")``, give the losses, grad norms and
@@ -51,6 +60,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import fused_adamw as FA
+from repro_torch.kernels import moe_route as MR
 
 # The package's ``daxpy`` is the exported function (as in the
 # reference); the module holds the kernel's launcher.
@@ -196,6 +206,42 @@ def test_captured_decode_replays_are_bit_equal(card, shape):
     case = _shape_cases(card, shape)[-1]
     res = SMOKE.check_captured_kernel(card, case)
     assert res["capture_s"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# The MoE router's expert-slot kernel
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMOKE.MOE_ROUTE_CASES,
+                         ids=[c[0] for c in SMOKE.MOE_ROUTE_CASES])
+def test_moe_route_kernel_bit_equal_to_plain_version(card, case):
+    res = SMOKE.check_moe_route(case, card)
+    if case[0] == "overflow-cf0.25":
+        assert 0 < res["dropped"] < res["groups"] * res["copies"]
+
+
+ROUTE_CAPTURED = [SMOKE.MOE_ROUTE_CASES[0], SMOKE.MOE_ROUTE_CASES[3]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROUTE_CAPTURED,
+                         ids=[c[0] for c in ROUTE_CAPTURED])
+def test_captured_moe_route_replays_are_bit_equal(card, case):
+    """A refill's two passes and a decode call's one, captured in a graph
+    and replayed twice: bit-equal to the plain version, one launch counted
+    per replay."""
+    assert SMOKE.check_moe_route_captured(card, case)["capture_s"] > 0
+
+
+@pytest.mark.cuda
+def test_moe_route_rejects_what_it_does_not_take(card):
+    ids = torch.zeros(1, 16, dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        MR.expert_slots(ids.int(), 8, 4)
+    with pytest.raises(ValueError):
+        MR.expert_slots(ids, 100_000, 4)
+    with pytest.raises(ValueError):
+        MR.expert_slots(ids, 8, -1)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,10 @@
     ``capacity_factor`` that forces overflow drops, with exactly equal
     router logits (ties broken in expert order, as ``lax.top_k`` does),
     and with two routing groups;
+  * ``kernels.moe_route.expert_slots_plain`` (the router's rank in expert)
+    equal to a walk over the copies with running per-expert counters, at
+    the decode shapes, the kernel's tile edges, with drops and two groups;
+    ``expert_slots`` on CPU tensors runs it and launches nothing;
   * ``ssd_chunked`` against the reference (``rtol=atol=1e-5``) and against
     a step-by-step f64 recurrence of the SSM (``rtol=1e-4, atol=1e-5``: f32
     chunk sums against a sequential scan);
@@ -30,6 +34,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import layers as ref_layers
 from repro.models import scaled_down as ref_scaled_down
 from repro_torch.configs import get_config
+from repro_torch.kernels import moe_route
 from repro_torch.models import layers, scaled_down
 
 
@@ -118,6 +123,62 @@ def test_moe_block_routes_like_reference(case, monkeypatch):
         srt = np.sort(logits, axis=-1)[:, ::-1]
         k = cfg.num_experts_per_tok
         assert (srt[:, k - 1] == srt[:, k]).any()
+
+
+def _slots_by_loop(ids, e, cap):
+    """dst and keep of ids (G, N) by a walk over each group's copies with
+    one running counter per expert."""
+    dst = np.empty(ids.shape, np.int64)
+    keep = np.empty(ids.shape, bool)
+    for g, row in enumerate(ids.tolist()):
+        seen = [0] * e
+        for i, x in enumerate(row):
+            rank, seen[x] = seen[x], seen[x] + 1
+            keep[g, i] = rank < cap
+            dst[g, i] = x * cap + rank if rank < cap else e * cap
+    return dst, keep
+
+
+T = moe_route.TILE
+# (groups, copies, experts, cap): the decode calls of granite-4.0-h-small
+# (4 tokens x 10 of 72) and qwen3-moe-30b-a3b (8 x 8 of 128), the kernel's
+# tile edges and a ragged last tile, caps of capacity factor 0.25 that drop
+# copies, two groups.
+SLOT_CASES = {
+    "decode-granite": (1, 40, 72, 10),
+    "decode-qwen3-moe": (1, 64, 128, 8),
+    "tile-less-one": (1, T - 1, 72, 36),
+    "one-tile": (1, T, 72, 36),
+    "tile-plus-one": (1, T + 1, 72, 36),
+    "ragged-last-tile": (1, 3 * T + 517, 128, 60),
+    "overflow": (1, 2 * T + 100, 72, 15),
+    "two-groups": (2, T + 300, 72, 40),
+}
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_expert_slots_plain_equals_a_loop_over_the_copies(case):
+    g, n, e, cap = SLOT_CASES[case]
+    rng = np.random.default_rng(5)
+    weight = rng.random(e) ** 3 + 0.02          # some experts far more popular
+    ids = rng.choice(e, size=(g, n), p=weight / weight.sum())
+    dst, keep = moe_route.expert_slots_plain(torch.from_numpy(ids), e, cap)
+    want_dst, want_keep = _slots_by_loop(ids, e, cap)
+    assert dst.dtype == torch.int64 and keep.dtype == torch.bool
+    np.testing.assert_array_equal(dst.numpy(), want_dst)
+    np.testing.assert_array_equal(keep.numpy(), want_keep)
+    if case == "overflow":
+        assert 0 < (~want_keep).sum() < want_keep.size
+
+
+def test_expert_slots_on_the_cpu_run_the_plain_version(monkeypatch):
+    monkeypatch.setattr(moe_route, "LAUNCHES", 0)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 72, (2, 2 * T + 5)))
+    got = moe_route.expert_slots(ids, 72, 30)
+    want = moe_route.expert_slots_plain(ids, 72, 30)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert moe_route.LAUNCHES == 0
 
 
 def _ssd_inputs(seed, b=2, t=32, h=3, pdim=4, n=5):
