@@ -675,14 +675,10 @@ def time_floor(case, dev, launches: int | None = None) -> float:
     nsplit, _ = DA.split_plan(b, kh, s, sms)
     if launches is None:
         launches = 2 if DA.fold_stats(h // kh, s, nsplit) else 3
-    fn = _build.library("decode_attention").decode_attention_empty_grid
-    fn.argtypes, fn.restype = [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
-
-    def call():
-        rc = fn(b, kh, nsplit, launches, torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
-    return time_ms(call, dev)
+    argtypes = (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+    return time_ms(lambda: _build.launch(
+        "decode_attention", "decode_attention_empty_grid", argtypes, dev, b,
+        kh, nsplit, launches, count=None), dev)
 
 
 def time_attend_only(case, dev) -> float:
@@ -946,50 +942,70 @@ def _slots_equal(tag: str, got, want) -> None:
             f"{bad.nonzero()[0].tolist()}")
 
 
+def counted_once(key: str, tag: str, fn):
+    """``fn()``, synced; raises unless it counted one launch under
+    ``LAUNCHES[key]``."""
+    import torch
+    from repro_torch.kernels._build import LAUNCHES
+    before = LAUNCHES[key]
+    out = fn()
+    torch.cuda.synchronize()
+    if LAUNCHES[key] - before != 1:
+        raise AssertionError(f"{tag}: {LAUNCHES[key] - before} {key} "
+                             "launches counted for one call")
+    return out
+
+
 def check_moe_route(case, dev) -> dict:
     """The router's expert-slot kernel against its plain version at
     ``case``: dst and keep bit-equal, one launch counted."""
-    import torch
     from repro_torch.kernels import moe_route as MR
     ids, e, cap = route_inputs(case, dev)
-    before = MR.LAUNCHES
-    got = MR.expert_slots(ids, e, cap)
-    torch.cuda.synchronize()
-    if MR.LAUNCHES != before + 1:
-        raise AssertionError(f"moe_route {case[0]}: {MR.LAUNCHES - before} "
-                             "launches counted for one call")
+    got = counted_once("moe_route", f"moe_route {case[0]}",
+                       lambda: MR.expert_slots(ids, e, cap))
     _slots_equal(case[0], got, MR.expert_slots_plain(ids, e, cap))
     return {"case": case[0], "groups": ids.shape[0], "copies": ids.shape[1],
             "experts": e, "cap": cap, "dropped": int((~got[1]).sum())}
 
 
-def check_moe_route_captured(dev, case) -> dict:
-    """The router kernel inside a captured graph (a ``CompiledStep``): its
-    first call runs eagerly and captures, the second and third replay;
-    every call's dst and keep bit-equal to the plain version's, one launch
-    counted per call and per replay."""
+def check_captured(dev, name: str, fn, args: tuple, key: str, compare,
+                   static_argnums=()) -> tuple[list, dict]:
+    """A ``CompiledStep`` of ``fn`` called three times on ``args``: eager
+    and captured, then two replays.  Each call must count one launch under
+    ``LAUNCHES[key]``, pass ``compare(out)`` (which raises) and give the
+    first call's out bit for bit, and the stats must say captured, three
+    calls and ``{key: 1}`` per replay.  Returns the outs and the stats."""
     import torch
-    from repro_torch.kernels import moe_route as MR
+    from torch.utils import _pytree as pytree
+
     from repro_torch.launch.compile import CompiledStep
-    ids, e, cap = route_inputs(case, dev, seed=1)
-    step = CompiledStep(lambda ids: dict(zip(
-        ("dst", "keep"), MR.expert_slots(ids, e, cap))), device=dev,
-        name=f"moe_route-{case[0]}")
-    want = MR.expert_slots_plain(ids, e, cap)
+    step = CompiledStep(fn, device=dev, static_argnums=static_argnums,
+                        name=name)
+    outs = []
     for _ in range(3):
-        before = MR.LAUNCHES
-        got = step(ids)
-        torch.cuda.synchronize()
-        if MR.LAUNCHES - before != 1:
-            raise AssertionError(f"moe_route {case[0]}: "
-                                 f"{MR.LAUNCHES - before} launches counted "
-                                 "for one call")
-        _slots_equal(f"{case[0]} (compiled)", (got["dst"], got["keep"]),
-                     want)
+        outs.append(counted_once(key, name, lambda: step(*args)))
+        compare(outs[-1])
+        if not all(map(torch.equal, pytree.tree_leaves(outs[-1]),
+                       pytree.tree_leaves(outs[0]))):
+            raise AssertionError(f"{name}: a replay's out differs from the "
+                                 "first call's")
     [st] = step.stats()
     if (not st["captured"] or st["calls"] != 3
-            or st["launches_per_replay"] != {"moe_route": 1}):
-        raise AssertionError(f"moe_route {case[0]}: {st}")
+            or st["launches_per_replay"] != {key: 1}):
+        raise AssertionError(f"{name}: {st}")
+    return outs, st
+
+
+def check_moe_route_captured(dev, case) -> dict:
+    """The router kernel inside a captured graph (``check_captured``):
+    every call's dst and keep bit-equal to the plain version's."""
+    from repro_torch.kernels import moe_route as MR
+    ids, e, cap = route_inputs(case, dev, seed=1)
+    want = MR.expert_slots_plain(ids, e, cap)
+    _, st = check_captured(
+        dev, f"moe_route-{case[0]}", lambda ids: MR.expert_slots(ids, e, cap),
+        (ids,), "moe_route", lambda got: _slots_equal(
+            f"{case[0]} (compiled)", got, want))
     log(f"[capture] moe_route {case[0]} ({ids.shape[1]} copies): captured "
         f"in {st['capture_s']:.3f} s and replayed twice, dst and keep "
         "bit-equal to the plain version, one launch per replay")
@@ -1004,7 +1020,6 @@ def time_moe_route(case, dev) -> dict:
     import torch
     from repro_torch.kernels import moe_route as MR
     ids, e, cap = route_inputs(case, dev)
-    before = MR.LAUNCHES
     kernel_ms = time_ms(lambda: MR.expert_slots(ids, e, cap), dev)
     plain_ms = time_ms(lambda: MR.expert_slots_plain(ids, e, cap), dev,
                        reps=20, warmup=3)
@@ -1013,7 +1028,6 @@ def time_moe_route(case, dev) -> dict:
         MR.expert_slots(ids, e, cap)
     graph_ms = time_ms(graph.replay, dev)
     del graph
-    MR.LAUNCHES = before
     g, n = ids.shape
     nbytes = g * n * (8 + 8 + 1)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1052,18 +1066,18 @@ def phase_moe_route(dev) -> dict:
 def phase_serve(dev) -> dict:
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.launch.serve import serve
 
     prompts, prompt_len, gen = 4, 128, 32
     cfg = get_config(ARCH)
     torch.cuda.reset_peak_memory_stats(dev)
-    DA.LAUNCHES = 0
+    LAUNCHES["decode_attention"] = 0
     t0 = time.perf_counter()
     out = serve(ARCH, reduced=False, prompts=prompts, prompt_len=prompt_len,
                 gen=gen, fused_decode=True, device=dev)
     wall = time.perf_counter() - t0
-    launches = DA.LAUNCHES
+    launches = LAUNCHES["decode_attention"]
     expect = cfg.num_layers * (gen - 1)
     if launches != expect:
         raise AssertionError(f"kernel launched {launches} times while "
@@ -1194,9 +1208,8 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import credit_threshold
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import moe_route as MR
     from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.obs import Tracer
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
 
@@ -1212,7 +1225,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
                            else ([0], lambda: None))
     windows, undo_window = time_loop_runs()
     try:
-        DA.LAUNCHES = DA.SHARD_LAUNCHES = PA.LAUNCHES = MR.LAUNCHES = 0
+        LAUNCHES.clear()
         t0 = time.perf_counter()
         out = serve_workload(stream_spec(requests), config=ServeConfig(
             arch=arch, reduced=False, fused_decode=True, fabric="wallclock",
@@ -1221,10 +1234,11 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
             mesh=mesh))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, other = ((DA.SHARD_LAUNCHES, DA.LAUNCHES) if mesh is not None
-                           else (DA.LAUNCHES, DA.SHARD_LAUNCHES))
-        prefill_launches = PA.LAUNCHES
-        route_launches = MR.LAUNCHES
+        launches, other = (LAUNCHES[k] for k in (
+            ("decode_attention_shard", "decode_attention") if mesh is not None
+            else ("decode_attention", "decode_attention_shard")))
+        prefill_launches = LAUNCHES["prefill_attention"]
+        route_launches = LAUNCHES["moe_route"]
     finally:
         undo()
         undo_rec()
@@ -1427,8 +1441,7 @@ def check_no_sync(dev) -> dict:
     its captured launches per replay: one per attention layer."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import moe_route as MR
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.serve.batcher import ServingEngine
 
     # The mode catches a blocking copy (else the check below proves nothing).
@@ -1455,7 +1468,7 @@ def check_no_sync(dev) -> dict:
                                                 mask)
         tok, caches, _ = eng.decode(tok[:, None], caches, lens)
         torch.cuda.synchronize()
-        DA.LAUNCHES = MR.LAUNCHES = 0
+        LAUNCHES.clear()
         torch.cuda.set_sync_debug_mode("error")
         try:
             pend = [eng.prefill_into_slots_async(tokens, caches, mask)]
@@ -1469,20 +1482,20 @@ def check_no_sync(dev) -> dict:
             eng.wait_step(p)      # raises if a credit count falls short
         n_attn = attention_layers(eng.cfg)
         per_replay = eng._dec_jit.stats()[0]["launches_per_replay"]
-        if DA.LAUNCHES != 2 * n_attn or \
+        decode, route = LAUNCHES["decode_attention"], LAUNCHES["moe_route"]
+        if decode != 2 * n_attn or \
                 per_replay.get("decode_attention", 0) != n_attn:
-            raise AssertionError(f"{arch}: {DA.LAUNCHES} decode-kernel "
+            raise AssertionError(f"{arch}: {decode} decode-kernel "
                                  f"launches for two replays ({per_replay} "
                                  f"per replay), expected 2 x {n_attn}")
         # The router kernel: once per MoE layer in each of the three replays.
         n_moe = moe_layers(eng.cfg)
-        if MR.LAUNCHES != 3 * n_moe or \
-                per_replay.get("moe_route", 0) != n_moe:
-            raise AssertionError(f"{arch}: {MR.LAUNCHES} moe_route launches "
+        if route != 3 * n_moe or per_replay.get("moe_route", 0) != n_moe:
+            raise AssertionError(f"{arch}: {route} moe_route launches "
                                  f"for three replays ({per_replay} per "
                                  f"decode replay), expected 3 x {n_moe}")
-        res[arch] = {"steps_queued": len(pend), "replay_launches":
-                     DA.LAUNCHES, "graphs": len(eng.compiled_steps())}
+        res[arch] = {"steps_queued": len(pend), "replay_launches": decode,
+                     "graphs": len(eng.compiled_steps())}
     log(f"[sync] prefill_into_slots_async and decode_async replayed their "
         f"graphs under set_sync_debug_mode('error') with no sync, the decode "
         f"kernel counted once per attention layer per replay and the router "
@@ -1493,52 +1506,36 @@ def check_no_sync(dev) -> dict:
 
 
 def check_captured_kernel(dev, case=BIG_SMEM_CASE) -> dict:
-    """The decode kernel inside a captured graph: a ``CompiledStep`` of
+    """The decode kernel inside a captured graph (``check_captured``):
     ``fused_decode_attention`` with the caches static, at ``case`` (the
-    launches set the kernels' shared-memory attribute and launch
-    on the capture stream).  Its first call runs eagerly and captures,
-    the second and third replay; each starts from the same caches, and
-    its out and caches must equal the plain version's one step from them,
-    with one launch counted per call, and every call's out must be the
-    first's bit for bit (the tickets and chunk sums of a replay start as
-    the eager call's did)."""
+    launches set the kernels' shared-memory attribute and launch on the
+    capture stream).  Each call starts from the same caches, and its out
+    and caches must equal the plain version's one step from them (out bit
+    for bit across the calls: the tickets and chunk sums of a replay start
+    as the eager call's did)."""
     import torch
     from repro_torch.kernels import decode_attention as DA
-    from repro_torch.launch.compile import CompiledStep
 
     name, *_, dt, _, _, _, _ = case
-    (q, k, v, kc, vc, idx, cos, sin, _, _), _ = make_inputs(case, 0, dev)
+    args = make_inputs(case, 0, dev)[0][:8]
+    q, k, v, kc, vc, idx, cos, sin = args
     kc0, vc0 = kc.clone(), vc.clone()
-    step = CompiledStep(
-        lambda q, k, v, kc, vc, idx, cos, sin: {
-            "out": DA.fused_decode_attention(q, k, v, kc, vc, idx, cos,
-                                             sin)[0]},
-        device=dev, static_argnums=(3, 4), name=name)
     want = DA.decode_attention_plain(q, k, v, kc0.clone(), vc0.clone(), idx,
                                      cos, sin)
-    errs, outs = [], []
-    for _ in range(3):
-        kc.copy_(kc0)
-        vc.copy_(vc0)
-        before = DA.LAUNCHES
-        got = step(q, k, v, kc, vc, idx, cos, sin)
-        torch.cuda.synchronize()
-        if DA.LAUNCHES - before != 1:
-            raise AssertionError(f"{name}: {DA.LAUNCHES - before} launches "
-                                 "counted for one call")
+
+    def compare(out):     # then back to the first call's caches
         if not (torch.equal(kc, want[1]) and torch.equal(vc, want[2])):
             raise AssertionError(f"{name}: caches differ from the plain "
                                  "version's")
-        torch.testing.assert_close(got["out"], want[0], **TOL[dt],
+        torch.testing.assert_close(out, want[0], **TOL[dt],
                                    msg=lambda m: f"{name}: out: {m}")
-        errs.append(float((got["out"].float() - want[0].float()).abs().max()))
-        outs.append(got["out"])
-    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
-        raise AssertionError(f"{name}: a replay's out differs from the "
-                             "first call's")
-    [st] = step.stats()
-    if not st["captured"] or st["calls"] != 3:
-        raise AssertionError(f"{name}: {st}")
+        kc.copy_(kc0)
+        vc.copy_(vc0)
+
+    outs, st = check_captured(
+        dev, name, lambda *a: DA.fused_decode_attention(*a)[0], args,
+        "decode_attention", compare, static_argnums=(3, 4))
+    err = max(float((o.float() - want[0].float()).abs().max()) for o in outs)
     g, d = case[4] // case[5], case[6]
     smem = max(DA.smem_bytes(g, d, q.element_size(), kc.element_size(),
                              tc=DA.tensor_cores(q.dtype, d), pv=pv)
@@ -1546,10 +1543,9 @@ def check_captured_kernel(dev, case=BIG_SMEM_CASE) -> dict:
     log(f"[capture] {name}: fused_decode_attention (G={g}, {smem} B of "
         f"shared memory per CTA) captured in "
         f"{st['capture_s']:.3f} s and replayed twice: out within {TOL[dt]} "
-        f"of the plain version (max abs err {max(errs):.3g}) and bit-equal "
+        f"of the plain version (max abs err {err:.3g}) and bit-equal "
         f"across the calls, caches bit-exact")
-    return {"case": name, "capture_s": st["capture_s"],
-            "max_abs_err": max(errs)}
+    return {"case": name, "capture_s": st["capture_s"], "max_abs_err": err}
 
 
 def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
@@ -1573,7 +1569,7 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
     may differ from the continuous loop's; they are counted, not held
     equal."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.launch.compile import disable_compile
     from repro_torch.models import init_params
     from repro_torch.serve import RequestState, ServeConfig, serve_workload
@@ -1590,7 +1586,7 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
     runs["unfused-compiled"] = (False, False, True, "unfused")
     streams, plans, launches, taps, compiled = {}, {}, {}, {}, {}
     for name, (fused, pipeline, comp, _) in runs.items():
-        DA.LAUNCHES = 0
+        LAUNCHES["decode_attention"] = 0
         taps[name], undo = _tap_decodes(route=not comp)
         engines, undo_rec = _record_engines()
         try:
@@ -1602,7 +1598,7 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
         finally:
             undo()
             undo_rec()
-        launches[name] = DA.LAUNCHES
+        launches[name] = LAUNCHES["decode_attention"]
         streams[name] = {r.rid: r.generated.tolist() for r in out["requests"]
                          if r.state is RequestState.DONE}
         plans[name] = [(p.kind, p.n_elems, p.m) for p in out["plans"]]
@@ -1880,7 +1876,7 @@ def phase_design_point(dev, point) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import credit_threshold
-    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.serve import ServeConfig, serve_workload
 
     cfg = get_config(ARCH)
@@ -1889,14 +1885,14 @@ def phase_design_point(dev, point) -> dict:
     mem_before = torch.cuda.memory_allocated(dev)
     reads, undo = _record_credit_reads()
     try:
-        DA.LAUNCHES = 0
+        LAUNCHES["decode_attention"] = 0
         t0 = time.perf_counter()
         out = serve_workload(stream_spec(), config=ServeConfig(
             arch=ARCH, reduced=False, fused_decode=True, design=point,
             device=dev))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = DA.LAUNCHES
+        launches = LAUNCHES["decode_attention"]
     finally:
         undo()
     m, plans = out["metrics"], out["plans"]
@@ -1966,7 +1962,7 @@ def run_fleet(dev, spec, arch, params, faults: str | None = None,
     pipelined loop lets a prefill overlap any number of decodes, not one.
     Returns the record and the completed requests' token streams."""
     import torch
-    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.models import scaled_down
     from repro_torch.obs import Tracer
     from repro_torch.serve import FleetConfig, RequestState, serve_fleet
@@ -1979,13 +1975,13 @@ def run_fleet(dev, spec, arch, params, faults: str | None = None,
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
     tracer = Tracer()     # its wall-domain spans split each lane's seconds
-    DA.LAUNCHES = 0
+    LAUNCHES["decode_attention"] = 0
     t0 = time.perf_counter()
     out = serve_fleet(spec, config=FleetConfig(
         execute=True, params=params, device=dev, tracer=tracer, **kw))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = DA.LAUNCHES
+    launches = LAUNCHES["decode_attention"]
     peak = torch.cuda.max_memory_allocated(dev)
 
     def routes(o):
@@ -2446,12 +2442,13 @@ def phase_daxpy_offload(dev) -> dict:
     import torch
     DX = importlib.import_module("repro_torch.kernels.daxpy")
     from repro_torch.kernels import ops
+    from repro_torch.kernels._build import LAUNCHES
 
     inputs = {n: _daxpy_inputs(n, dev) for n in DAXPY_SIZES}
-    DX.LAUNCHES = 0
+    LAUNCHES["daxpy"] = 0
     outs = {n: ops.daxpy(2.5, x, y) for n, (x, y) in inputs.items()}
     torch.cuda.synchronize()
-    launches = DX.LAUNCHES
+    launches = LAUNCHES["daxpy"]
     if launches != len(DAXPY_SIZES):
         raise AssertionError(f"daxpy launched {launches} times, expected "
                              f"{len(DAXPY_SIZES)}")
@@ -2691,7 +2688,7 @@ def phase_train(dev) -> dict:
     from torch.utils import _pytree as pytree
 
     from repro_torch.data import DataConfig, DataPipeline
-    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.launch import train
     from repro_torch.launch.compile import disable_compile
 
@@ -2701,14 +2698,14 @@ def phase_train(dev) -> dict:
     ckpt_dir = REPO / "results" / "train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    FA.LAUNCHES = 0
+    LAUNCHES["fused_adamw"] = 0
     t0 = time.perf_counter()
     out = train.run(cfg, step, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                     seq=TRAIN_SEQ, ckpt_dir=ckpt_dir,
                     ckpt_every=TRAIN_STEPS + 1, log_every=1, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = FA.LAUNCHES
+    launches = LAUNCHES["fused_adamw"]
     ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy"))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     leaves = pytree.tree_leaves(out["params"])
@@ -2775,15 +2772,15 @@ def phase_train(dev) -> dict:
                                    seed=5), dev)
     try:
         next(data)
-        FA.LAUNCHES = 0
+        LAUNCHES["fused_adamw"] = 0
         for _ in range(TRAIN_SYNC_STEPS):
             params, opt_state, met = _sync_free(lambda: step(
                 params, opt_state, {"tokens": next(data)}))
             if int(met["credits"]) != 1:
                 raise AssertionError("a warm replay's credits fell short")
-        if FA.LAUNCHES != n_leaves * TRAIN_SYNC_STEPS:
-            raise AssertionError(f"{FA.LAUNCHES} fused AdamW launches in "
-                                 f"{TRAIN_SYNC_STEPS} replays")
+        if LAUNCHES["fused_adamw"] != n_leaves * TRAIN_SYNC_STEPS:
+            raise AssertionError(f"{LAUNCHES['fused_adamw']} fused AdamW "
+                                 f"launches in {TRAIN_SYNC_STEPS} replays")
         # The same steps timed replayed, then eager (disable_compile()) on
         # the same tensors, in this call.
         for mode in ("replay", "eager"):
@@ -2858,7 +2855,7 @@ def train_steps(dev, cfg, steps: int = TRAIN_CHECK_STEPS, *,
     import torch
     from torch.utils import _pytree as pytree
 
-    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.launch import train
     from repro_torch.launch.compile import disable_compile
     from repro_torch.models import init_params
@@ -2873,7 +2870,7 @@ def train_steps(dev, cfg, steps: int = TRAIN_CHECK_STEPS, *,
     opt_state = init_opt_state(params)
     batches = _device_batches(cfg, dev, steps)
     metrics = []
-    FA.LAUNCHES = 0
+    LAUNCHES["fused_adamw"] = 0
     with contextlib.nullcontext() if compiled else disable_compile():
         for i, tokens in enumerate(batches):
             def one():
@@ -2889,7 +2886,8 @@ def train_steps(dev, cfg, steps: int = TRAIN_CHECK_STEPS, *,
             "grad_norms": [scalar(m["grad_norm"]) for m in metrics],
             "params": [p.full_tensor() if mesh is not None else p
                        for p in pytree.tree_leaves(params)],
-            "launches": FA.LAUNCHES, "stats": step.stats() if compiled else [],
+            "launches": LAUNCHES["fused_adamw"],
+            "stats": step.stats() if compiled else [],
             "credits": [int(m["credits"]) for m in metrics]}
 
 
@@ -3074,7 +3072,7 @@ def phase_train_ssm(dev) -> dict:
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.launch import train
 
     steps = TRAIN_CHECK_STEPS
@@ -3086,14 +3084,15 @@ def phase_train_ssm(dev) -> dict:
     ckpt_dir = REPO / "results" / "ssm_train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    FA.LAUNCHES = 0
+    LAUNCHES["fused_adamw"] = 0
     out = train.run(cfg, step, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     ckpt_dir=ckpt_dir, ckpt_every=steps + 1, log_every=1,
                     device=dev)
+    launches = LAUNCHES["fused_adamw"]
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     leaves = pytree.tree_leaves(out["params"])
     stats = step.stats()
-    _check_compiled_run(SSM_ARCH, stats, FA.LAUNCHES, leaves, steps)
+    _check_compiled_run(SSM_ARCH, stats, launches, leaves, steps)
     if out["faults"] or not all(map(math.isfinite, out["losses"])):
         raise AssertionError(f"{SSM_ARCH}: faults {out['faults']}, losses "
                              f"{out['losses']}")
@@ -3101,7 +3100,7 @@ def phase_train_ssm(dev) -> dict:
     res = {"arch": SSM_ARCH, "layers": cfg.num_layers,
            "params": sum(p.numel() for p in leaves), "dtype": cfg.dtype,
            "losses": out["losses"], "step_seconds": out["step_seconds"],
-           "launches": FA.LAUNCHES, "capture_s": st["capture_s"],
+           "launches": launches, "capture_s": st["capture_s"],
            "pool_bytes": st["pool_bytes"],
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
     log(f"[train-ssm] {SSM_ARCH} full size ({cfg.num_layers} layers, "
@@ -3110,7 +3109,7 @@ def phase_train_ssm(dev) -> dict:
         f"{[round(x, 4) for x in out['losses']]}, step seconds "
         f"{[round(x, 4) for x in out['step_seconds']]}; capture "
         f"{st['capture_s']:.3f} s, pool {gib(st['pool_bytes'])}, fused AdamW "
-        f"launches {FA.LAUNCHES}")
+        f"launches {launches}")
     del step, out, leaves
     return res
 

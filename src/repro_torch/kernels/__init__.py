@@ -9,13 +9,14 @@
   ref              — plain PyTorch oracles for daxpy and AdamW.
 
 Nothing is compiled on import: a kernel's shared library is built by
-``nvcc`` at its first launch (``kernels._build``).
+``nvcc`` at its first launch.  ``kernels._build`` is the one way into the
+libraries; its ``LAUNCHES`` counts every kernel's calls, keyed by kernel.
 
 The package exports are the reference's (``repro/kernels/__init__.py``).
 As there, the exported ``daxpy`` function shadows the ``daxpy`` submodule
-as a package attribute: reach the module (its ``LAUNCHES`` counter, its
-plain version) with ``importlib.import_module("repro_torch.kernels.daxpy")``
-or ``from repro_torch.kernels.daxpy import ...``.
+as a package attribute: reach the module (its plain version) with
+``importlib.import_module("repro_torch.kernels.daxpy")`` or ``from
+repro_torch.kernels.daxpy import ...``.
 """
 
 from . import ops, ref

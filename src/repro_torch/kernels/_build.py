@@ -11,27 +11,42 @@ named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one loads at once.  Nothing is built when a module is
 imported: the first launch of a kernel builds it (``library``), and
 ``build_all`` builds every source in parallel, one ``nvcc`` each.
+
+This module is also the one boundary between Python and the kernels' C
+entry points.  ``entry`` binds an entry once (its ``argtypes``, an ``int``
+``cudaError_t`` return); ``launch`` calls it under the tensors' device on
+that device's current stream (the entry's last argument), raises on a
+nonzero return and, on success, adds one to ``LAUNCHES[count]``.
+``LAUNCHES`` is the one host-side launch counter: a kernel's wrapper names
+the key it counts under, and ``launch.compile.CompiledStep`` reads the
+counter at capture and adds the captured launches back on every replay.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("decode_attention", "prefill_attention", "moe_route", "daxpy",
-           "fused_adamw")
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 #: Compiler output (ptxas register/shared-memory report) per built source.
 BUILD_LOGS: dict[str, str] = {}
+#: Kernel calls by key (the wrapper's ``count``) since import, or since a
+#: caller last cleared or set them.
+LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
 def find_nvcc() -> str:
@@ -86,3 +101,29 @@ def library(name: str) -> ctypes.CDLL:
         path = build_all((name,))[name]
         _LOADED[name] = ctypes.CDLL(str(path))
     return _LOADED[name]
+
+
+@functools.cache
+def entry(name: str, symbol: str, argtypes: tuple = ()):
+    """``symbol`` of ``csrc/<name>.cu``'s library, bound once: its
+    ``argtypes`` and an ``int`` return."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def launch(name: str, symbol: str, argtypes: tuple, device: torch.device,
+           *args, count: str | None) -> None:
+    """Call the kernel entry ``symbol`` of ``csrc/<name>.cu`` with ``args``
+    and ``device``'s current stream; ``argtypes`` end with the stream's.
+
+    A nonzero return raises; a zero one adds one to ``LAUNCHES[count]``
+    (None counts nothing).
+    """
+    fn = entry(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel {symbol} failed: cudaError {rc}")
+    if count is not None:
+        LAUNCHES[count] += 1

@@ -14,7 +14,7 @@ VMEM.  Two implementations of the same function live here:
 
 ``daxpy`` takes the plain version only for tensors that lie on the CPU;
 CUDA tensors go to the kernel or raise.  Every launch adds one to
-``LAUNCHES``.
+``_build.LAUNCHES["daxpy"]``.
 """
 
 from __future__ import annotations
@@ -25,12 +25,9 @@ import torch
 
 from . import _build
 
-#: Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
 _ENTRIES = {torch.float32: "daxpy_f32", torch.bfloat16: "daxpy_bf16"}
-_ARGTYPES = [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p)
 
 
 def daxpy_plain(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -64,7 +61,6 @@ def daxpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     CPU tensors run ``daxpy_plain``; CUDA tensors launch the kernel, which
     writes a new tensor.
     """
-    global LAUNCHES
     if x.shape != y.shape:
         raise ValueError(f"x and y must have equal shapes, got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
@@ -76,15 +72,9 @@ def daxpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = getattr(_build.library("daxpy"), _ENTRIES[x.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(_scalar(a, x.dtype), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                x.numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"daxpy kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.launch("daxpy", _ENTRIES[x.dtype], _ARGTYPES, x.device,
+                  _scalar(a, x.dtype), x.data_ptr(), y.data_ptr(),
+                  out.data_ptr(), x.numel(), count="daxpy")
     return out
 
 

@@ -34,8 +34,9 @@ Two implementations of the same function live here:
 
 ``fused_decode_attention`` takes the plain version only for tensors that
 lie on the CPU; CUDA tensors go to the kernels or raise.  Every call that
-launches them adds one to ``LAUNCHES`` (one call, two or three launches),
-so a serving run counts one per attention layer and decode step.
+launches them adds one to ``_build.LAUNCHES["decode_attention"]`` (one
+call, two or three launches), so a serving run counts one per attention
+layer and decode step.
 
 The slot-shard form, ``decode_attention_shard`` (and its plain version
 ``decode_attention_shard_plain``), is the same step on one device's block
@@ -48,8 +49,9 @@ no device gathers the cache.  With one block and no collective it is the
 whole call, bit for bit.  ``decode_attention_over_shards`` runs several
 blocks of one cache side by side on one device, reduced there, which is
 how the tests and the chip smoke run hold the form.  Every block whose
-kernels launch adds one to ``SHARD_LAUNCHES`` (four launches: scores, max,
-sum, p@V); an empty block launches none and counts nothing.
+kernels launch adds one to ``_build.LAUNCHES["decode_attention_shard"]``
+(four launches: scores, max, sum, p@V); an empty block launches none and
+counts nothing.
 """
 
 from __future__ import annotations
@@ -67,11 +69,6 @@ from . import _build
 #: Matches ``models.layers.NEG_INF`` — the mask fill of the unfused path.
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
-#: Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-#: Slot-shard blocks whose kernels launched, counted as ``LAUNCHES``.
-SHARD_LAUNCHES = 0
-
 _ENTRIES = {
     (torch.float32, torch.float32): "decode_attention_f32",
     (torch.bfloat16, torch.bfloat16): "decode_attention_bf16",
@@ -88,14 +85,15 @@ _TILE = 64                   # slots per tile on tensor cores (kTileTC); chunks
                              # are whole tiles
 _TILE_CC = 32                # slots per tile on CUDA cores (kTileCC)
 _CTAS_PER_SM = 4             # CTAs per SM split_plan aims for
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 10
-             + [ctypes.c_void_p])
-_SCORES_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 13 + [ctypes.c_void_p])
-_PV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-_SUM_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_longlong,)
+             + (ctypes.c_int,) * 10 + (ctypes.c_void_p,))
+_SCORES_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_longlong,)
+                    + (ctypes.c_int,) * 13 + (ctypes.c_void_p,))
+_PV_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_longlong,)
+                + (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 11
+                + (ctypes.c_void_p,))
+_SUM_ARGTYPES = ((ctypes.c_void_p, ctypes.c_longlong) + (ctypes.c_void_p,) * 3
+                 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
 #: True inside ``cuda_core_build()``: bf16 calls take the CUDA-core build.
 _CUDA_CORES = False
 
@@ -519,25 +517,12 @@ def _plan(batch: int, kv_heads: int, g: int, d: int, slots: int,
                    if slots else 0)
 
 
-def _entry(name: str, argtypes):
-    fn = getattr(_build.library("decode_attention"), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _called(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"decode_attention {what} launch failed: "
-                           f"cudaError {rc}")
-
-
 def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
             v_scale, window: int, is_ring: bool) -> torch.Tensor:
-    global LAUNCHES
     b, _, h, d = q.shape
     slots, kh = k_cache.shape[1], k_cache.shape[2]
     _check(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
@@ -547,18 +532,15 @@ def _launch(q, k_new, v_new, k_cache, v_cache, lens, cos, sin, k_scale,
     chunk, nbytes = _plan(b, kh, h // kh, d, slots, q.element_size(),
                           k_cache.element_size(), tensor_cores(q.dtype, d),
                           sms, False)
-    fn = _entry(_ENTRIES[(q.dtype, k_cache.dtype)], _ARGTYPES)
     out = torch.empty_like(q)
     work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_cache),
-                _ptr(v_cache), _ptr(k_scale), _ptr(v_scale), _ptr(lens),
-                _ptr(cos), _ptr(sin), _ptr(out), _ptr(work), nbytes, b,
-                slots, h, kh, d, cos.shape[-1], int(window),
-                int(bool(is_ring)), chunk, int(_CUDA_CORES), stream)
-    _called(rc, "kernel")
-    LAUNCHES += 1
+    _build.launch("decode_attention", _ENTRIES[(q.dtype, k_cache.dtype)],
+                  _ARGTYPES, q.device, _ptr(q), _ptr(k_new), _ptr(v_new),
+                  _ptr(k_cache), _ptr(v_cache), _ptr(k_scale), _ptr(v_scale),
+                  _ptr(lens), _ptr(cos), _ptr(sin), _ptr(out), _ptr(work),
+                  nbytes, b, slots, h, kh, d, cos.shape[-1], int(window),
+                  int(bool(is_ring)), chunk, int(_CUDA_CORES),
+                  count="decode_attention")
     return out
 
 
@@ -572,7 +554,7 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     pre-write lengths, an int or (B,) int32; cos/sin (B,...,W) f32.  Plain
     caches return ``(out, k_cache, v_cache)`` and quantised caches also the
     scales, all updated in place.  CPU tensors run the plain version; CUDA
-    tensors launch the three kernels (one count in ``LAUNCHES``).
+    tensors launch the kernels (one count).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
@@ -596,9 +578,8 @@ def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     """The slot-shard form on the card, as a generator like
     :func:`_softmax_pv`: the scores pass and the local max, the local sum
     under the reduced max, the f32 partial p@V under the reduced max and
-    sum.  A block that launched its kernels adds one to
-    ``SHARD_LAUNCHES``."""
-    global SHARD_LAUNCHES
+    sum.  A block that launched its kernels counts one, under
+    ``decode_attention_shard``, after its last."""
     b, _, h, d = q.shape
     block, kh = k_cache.shape[1], k_cache.shape[2]
     w = cos.shape[-1]
@@ -627,29 +608,25 @@ def _kernel_shard_steps(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     cores = int(_CUDA_CORES)
 
-    def launch(entry, argtypes, what, *args):
-        if not block:
-            return
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            _called(_entry(entry, argtypes)(*args, stream), what)
+    def launch(symbol, argtypes, *args, count=None):
+        if block:
+            _build.launch("decode_attention", symbol, argtypes, q.device,
+                          *args, count=count)
 
-    launch(name + "_shard_scores", _SCORES_ARGTYPES, "shard scores",
+    launch(name + "_shard_scores", _SCORES_ARGTYPES,
            _ptr(q), _ptr(k_new), _ptr(v_new), _ptr(k_cache), _ptr(v_cache),
            _ptr(k_scale), _ptr(v_scale), _ptr(lens), _ptr(cos2), _ptr(sin2),
            _ptr(local_max), _ptr(work), nbytes, b, block, ldb, slot_base,
            slots, h, kh, d, w, int(window), int(bool(is_ring)), chunk, cores)
     m = (yield "max", local_max).to(torch.float32).contiguous()
-    launch("decode_attention_shard_sum", _SUM_ARGTYPES, "shard sum",
-           _ptr(work), nbytes, _ptr(m), _ptr(local_sum), _ptr(lens), b,
-           block, slot_base, slots, h, kh, d, int(window), chunk)
+    launch("decode_attention_shard_sum", _SUM_ARGTYPES, _ptr(work), nbytes,
+           _ptr(m), _ptr(local_sum), _ptr(lens), b, block, slot_base, slots,
+           h, kh, d, int(window), chunk)
     total = (yield "sum", local_sum).to(torch.float32).contiguous()
-    launch(name + "_shard_pv", _PV_ARGTYPES, "shard p@V", _ptr(k_cache),
-           _ptr(v_cache), _ptr(v_scale), _ptr(lens), _ptr(part), _ptr(work),
-           nbytes, _ptr(m), _ptr(total), b, block, ldb, slot_base, slots, h,
-           kh, d, int(window), chunk, cores)
-    if block:      # all three entries returned; an empty block made none
-        SHARD_LAUNCHES += 1
+    launch(name + "_shard_pv", _PV_ARGTYPES, _ptr(k_cache), _ptr(v_cache),
+           _ptr(v_scale), _ptr(lens), _ptr(part), _ptr(work), nbytes, _ptr(m),
+           _ptr(total), b, block, ldb, slot_base, slots, h, kh, d,
+           int(window), chunk, cores, count="decode_attention_shard")
     out = yield "sum", part
     return out.reshape(b, 1, h, d).to(q.dtype)
 
@@ -681,8 +658,8 @@ def decode_attention_shard(q, k_new, v_new, k_cache, v_cache, cache_len, cos,
     model axis); None is the identity, right for a block that is the whole
     cache, which then gives the whole call's values bit for bit.  CPU
     tensors run the plain version; CUDA tensors launch the kernels (one
-    count in ``SHARD_LAUNCHES``; an empty block launches and counts
-    nothing).
+    count under ``decode_attention_shard``; an empty block launches and
+    counts nothing).
     """
     slots = k_cache.shape[1] if slots is None else slots
     out = _reduce_with(_shard_steps(
@@ -701,7 +678,8 @@ def decode_attention_over_shards(q, k_new, v_new, k_cache, v_cache, cache_len,
     that device with ``torch.stack(...).amax/sum``: the mesh's
     decomposition without a mesh.  ``plain`` runs the plain version on any
     device.  Returns ``(out, caches...)`` like the whole call; each
-    non-empty block whose kernels launch adds one to ``SHARD_LAUNCHES``."""
+    non-empty block whose kernels launch counts one under
+    ``decode_attention_shard``."""
     slots = k_cache.shape[1]
     steps = []
     for base, size in slot_blocks(slots, shards):

@@ -24,7 +24,7 @@ Two implementations of the same function live here:
 ``fused_adamw`` updates p, m and v in place — the counterpart of the
 reference's donated buffers — and takes the plain version only for
 tensors that lie on the CPU; CUDA tensors go to the kernel or raise.
-Every launch adds one to ``LAUNCHES``.
+Every launch adds one to ``_build.LAUNCHES["fused_adamw"]``.
 """
 
 from __future__ import annotations
@@ -35,11 +35,8 @@ import torch
 
 from . import _build
 
-#: Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
 _ENTRIES = {torch.float32: "fused_adamw_f32", torch.bfloat16: "fused_adamw_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int64, ctypes.c_void_p)
 
 
 def pack_hparams(lr, b1: float, b2: float, eps: float, wd: float, step, *,
@@ -99,7 +96,6 @@ def fused_adamw(p, g, m, v, hp):
     ``adamw_plain`` and copy its result back; CUDA tensors launch the
     kernel.
     """
-    global LAUNCHES
     if not p.shape == g.shape == m.shape == v.shape:
         raise ValueError(f"p, g, m and v must have equal shapes, got "
                          f"{[tuple(t.shape) for t in (p, g, m, v)]}")
@@ -116,15 +112,9 @@ def fused_adamw(p, g, m, v, hp):
     _check(p, g, m, v, hp)
     if p.numel() == 0:
         return p, m, v
-    fn = getattr(_build.library("fused_adamw"), _ENTRIES[p.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = fn(hp.data_ptr(), p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                v.data_ptr(), p.numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused AdamW kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.launch("fused_adamw", _ENTRIES[p.dtype], _ARGTYPES, p.device,
+                  hp.data_ptr(), p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                  v.data_ptr(), p.numel(), count="fused_adamw")
     return p, m, v
 
 

@@ -22,28 +22,26 @@ row.  Two implementations of the same function live here:
 Every output is an integer, so the two are bit-equal.  ``expert_slots``
 takes the plain version for any tensor not on a CUDA device (the CPU, the
 dry run's fake tensors); a CUDA call launches the kernel or raises.  Every
-call that launches adds one to ``LAUNCHES``, so a step counts one per MoE
-layer.
+call that launches adds one to ``_build.LAUNCHES["moe_route"]``, so a step
+counts one per MoE layer.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-#: Kernel calls since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
 #: Copies per CTA of the kernel (``kTile`` in ``csrc/moe_route.cu``): a call
 #: of more copies launches the count pass too.
 TILE = 2048
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
-                                     ctypes.c_int, ctypes.c_int64,
-                                     ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_int64,
+                                      ctypes.c_int, ctypes.c_int64,
+                                      ctypes.c_void_p)
 
 
 def expert_slots_plain(ids: torch.Tensor, num_experts: int,
@@ -59,26 +57,23 @@ def expert_slots_plain(ids: torch.Tensor, num_experts: int,
     return dst, keep
 
 
-def _library() -> tuple[ctypes.CDLL, int]:
-    """The kernel's library and the largest E it takes."""
-    lib = _build.library("moe_route")
-    lib.moe_route_tile.restype = ctypes.c_int
-    lib.moe_route_max_experts.restype = ctypes.c_int
-    lib.moe_route_slots.argtypes = _ARGTYPES
-    lib.moe_route_slots.restype = ctypes.c_int
-    if lib.moe_route_tile() != TILE:
-        raise RuntimeError(f"moe_route.cu tiles {lib.moe_route_tile()} "
-                           f"copies, the wrapper {TILE}")
-    return lib, lib.moe_route_max_experts()
+@functools.cache
+def _max_experts() -> int:
+    """The largest E the kernel takes, once its tile is checked against
+    ``TILE``."""
+    tile = _build.entry("moe_route", "moe_route_tile")()
+    if tile != TILE:
+        raise RuntimeError(f"moe_route.cu tiles {tile} copies, the wrapper "
+                           f"{TILE}")
+    return _build.entry("moe_route", "moe_route_max_experts")()
 
 
 def _launch(ids: torch.Tensor, num_experts: int,
             cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    global LAUNCHES
     if ids.dim() != 2 or ids.dtype != torch.int64:
         raise TypeError(f"ids must be (G, N) int64, got {tuple(ids.shape)} "
                         f"{ids.dtype}")
-    lib, max_experts = _library()
+    max_experts = _max_experts()
     if not 1 <= num_experts <= max_experts:
         raise ValueError(f"num_experts {num_experts} outside the kernel's "
                          f"1..{max_experts}")
@@ -93,15 +88,10 @@ def _launch(ids: torch.Tensor, num_experts: int,
     tiles = -(-n // TILE)
     totals = (torch.empty((g, tiles - 1, num_experts), dtype=torch.int32,
                           device=ids.device) if tiles > 1 else None)
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        rc = lib.moe_route_slots(
-            ids.data_ptr(), dst.data_ptr(), keep.data_ptr(),
-            None if totals is None else totals.data_ptr(), g, n,
-            num_experts, cap, stream)
-    if rc != 0:
-        raise RuntimeError(f"moe_route launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.launch("moe_route", "moe_route_slots", _ARGTYPES, ids.device,
+                  ids.data_ptr(), dst.data_ptr(), keep.data_ptr(),
+                  None if totals is None else totals.data_ptr(), g, n,
+                  num_experts, cap, count="moe_route")
     return dst, keep
 
 
@@ -111,8 +101,7 @@ def expert_slots(ids: torch.Tensor, num_experts: int,
     (G, N), each group's slots ``cap`` per expert.
 
     Tensors not on a CUDA device run the plain version; CUDA tensors launch
-    the kernel (one count in ``LAUNCHES``) or raise on what it does not
-    take.
+    the kernel (one count) or raise on what it does not take.
     """
     if ids.device.type != "cuda":
         return expert_slots_plain(ids, num_experts, cap)

@@ -29,8 +29,8 @@ max's tile width differ.
 CUDA tensors go to the kernel or raise.  ``takes`` says whether the kernel
 takes a call (a CUDA tensor, bf16, a built head dim), which is how
 ``models.layers.attention_block`` routes a one-device prefill.  Every
-launch adds one to ``LAUNCHES``, so a prefill counts one per attention
-layer.
+launch adds one to ``_build.LAUNCHES["prefill_attention"]``, so a prefill
+counts one per attention layer.
 """
 
 from __future__ import annotations
@@ -44,12 +44,9 @@ import torch.nn.functional as F
 from . import _build
 from .decode_attention import NEG_INF
 
-#: Kernel launches since import (or since a caller last set it to 0).
-LAUNCHES = 0
-
 #: What the kernel is built for: bf16 activations and these head dims.
 HEAD_DIMS = (64, 128, 256)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -143,22 +140,16 @@ def _check(q, k, v, window: int) -> None:
 
 
 def _launch(q, k, v, window: int) -> torch.Tensor:
-    global LAUNCHES
     _check(q, k, v, window)
     q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     b, length, h, d = q.shape
     out = torch.empty_like(q)
-    fn = _build.library("prefill_attention").prefill_attention_bf16
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                length, h, k.shape[2], d, int(window), stream)
-    if rc != 0:
-        raise RuntimeError(f"prefill_attention launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.launch("prefill_attention", "prefill_attention_bf16", _ARGTYPES,
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), b, length, h, k.shape[2], d, int(window),
+                  count="prefill_attention")
     return out
 
 
@@ -169,8 +160,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B, L, H, D) and k, v (B, L, K, D), already roped; ``window`` 0 (none)
     or the sliding window of local layers.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (one count in ``LAUNCHES``) or
-    raise on what it does not take.
+    version; CUDA tensors launch the kernel (one count) or raise on what it
+    does not take.
     """
     if q.device.type == "cpu":
         return prefill_attention_plain(q, k, v, window=window)

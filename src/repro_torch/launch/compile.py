@@ -23,9 +23,9 @@ state donated, forward, backward, clipping and AdamW in one executable).  A
     next step queued.  The graphs of one owner may share one memory pool
     (``pool=``, a ``torch.cuda.graph_pool_handle()``): only the steps'
     transients live there;
-  * host-side launch counters (``LAUNCHES`` of the kernel modules, and
-    ``SHARD_LAUNCHES`` of the decode kernel's slot-shard form) count a
-    capture as nothing and add the captured launches on every replay;
+  * the kernels' host-side launch counter (``kernels._build.LAUNCHES``)
+    counts a capture as nothing and gets the captured launches back on
+    every replay;
   * on CPU tensors (``device="cpu"``) the step runs eagerly on the same
     static buffers each call, with the same copy-in and copy-out.
 
@@ -44,23 +44,16 @@ mark, with its ``capture_s``.  None reads no clock.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
-import importlib
 import time
 from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
 
-# Host-side launch counters: (name in ``stats()``, kernel module, counter).
-_COUNTED_KERNELS = (("decode_attention", "decode_attention", "LAUNCHES"),
-                    ("decode_attention_shard", "decode_attention",
-                     "SHARD_LAUNCHES"),
-                    ("prefill_attention", "prefill_attention", "LAUNCHES"),
-                    ("moe_route", "moe_route", "LAUNCHES"),
-                    ("daxpy", "daxpy", "LAUNCHES"),
-                    ("fused_adamw", "fused_adamw", "LAUNCHES"))
+from repro_torch.kernels._build import LAUNCHES
 
 
 class _Mode:
@@ -81,12 +74,6 @@ def disable_compile():
         _MODE.disabled = prev
 
 
-def _counters() -> list[tuple[str, Any, str]]:
-    """(name, module, attribute) of every host-side launch counter."""
-    return [(name, importlib.import_module(f"repro_torch.kernels.{mod}"),
-             attr) for name, mod, attr in _COUNTED_KERNELS]
-
-
 def _leaf_key(x) -> tuple:
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), x.dtype, x.device)
@@ -102,7 +89,9 @@ class _Entry:
     args: tuple                    # the arguments the step runs on
     graph: Any = None              # torch.cuda.CUDAGraph (None: the CPU)
     out: Any = None                # the graph's outputs
-    launches: list = dataclasses.field(default_factory=list)
+    # Kernel calls per replay, by their ``LAUNCHES`` key.
+    launches: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
     capture_s: float = 0.0
     pool_bytes: int = 0            # the pool's growth during the capture
     calls: int = 0
@@ -137,8 +126,7 @@ class CompiledStep:
         return [{"step": self.name, "key": _key_list(key),
                  "captured": e.graph is not None, "capture_s": e.capture_s,
                  "pool_bytes": e.pool_bytes, "calls": e.calls,
-                 "launches_per_replay": {name: n for name, _, _, n
-                                         in e.launches}}
+                 "launches_per_replay": dict(e.launches)}
                 for key, e in self._entries.items()]
 
     def __call__(self, *args):
@@ -178,8 +166,7 @@ class CompiledStep:
             out = self.fn(*entry.args)
         else:
             entry.graph.replay()
-            for _, mod, attr, n in entry.launches:
-                setattr(mod, attr, getattr(mod, attr) + n)
+            LAUNCHES.update(entry.launches)
             out = entry.out
         if marks is not None:
             t = _mark(marks, "replay", t, {"key": _key_list(key)})
@@ -211,8 +198,7 @@ class CompiledStep:
 
     def _capture(self, entry: _Entry) -> None:
         """Record the step into a graph; its kernels do not run here."""
-        counters = _counters()
-        before = [getattr(m, a) for _, m, a in counters]
+        before = LAUNCHES.copy()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
@@ -222,12 +208,10 @@ class CompiledStep:
                 entry.out = self.fn(*entry.args)
             entry.pool_bytes = (torch.cuda.memory_reserved(self.device)
                                 - reserved)
-            entry.launches = [(name, m, a, getattr(m, a) - n)
-                              for (name, m, a), n in zip(counters, before)
-                              if getattr(m, a) != n]
+            entry.launches = LAUNCHES - before
         finally:
-            for (_, m, a), n in zip(counters, before):
-                setattr(m, a, n)
+            LAUNCHES.clear()
+            LAUNCHES.update(before)
         entry.graph = graph
         entry.capture_s = time.perf_counter() - t0
 

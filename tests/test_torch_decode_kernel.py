@@ -39,6 +39,7 @@ from repro.kernels.decode_attention import (
 from repro.models import layers as RL
 from repro.models.config import ModelConfig as RefModelConfig
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import layers as TL
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import caches_from_numpy
@@ -163,9 +164,9 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_no_launch():
     case = CASES[0]
     x = _to_torch([_inputs(case)[n] for n in
                    ("q", "k", "v", "kc", "vc", "idx", "cos", "sin")])
-    before = DA.LAUNCHES
+    before = LAUNCHES["decode_attention"]
     out, kc, vc = DA.fused_decode_attention(*x)
-    assert DA.LAUNCHES == before
+    assert LAUNCHES["decode_attention"] == before
     assert kc is x[3] and vc is x[4]        # caches updated in place
     assert out.shape == x[0].shape and torch.isfinite(out).all()
 
@@ -263,6 +264,6 @@ def test_cuda_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip: see README)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = DA.LAUNCHES
+    before = LAUNCHES["decode_attention"]
     SMOKE.check_case(case, 0, torch.device("cuda", 0))
-    assert DA.LAUNCHES == before + 1
+    assert LAUNCHES["decode_attention"] == before + 1

@@ -554,32 +554,32 @@ def test_shard_form_block_by_block_with_collectives(shards):
 
 
 def test_shard_launch_count_skips_an_empty_block(monkeypatch):
-    """The kernels' slot-shard path adds one to ``SHARD_LAUNCHES`` for a
-    block whose kernels launched, and nothing for an empty block, which
-    launches nothing: S = 40 over 16 blocks of 3 (DTensor's cut) leaves the
-    last two empty.  The card is faked: each entry point returns 0."""
-    from contextlib import nullcontext
+    """The kernels' slot-shard path launches its three entries and counts
+    one under ``decode_attention_shard``, after the last, for a block that
+    holds slots, and launches and counts nothing for an empty block: S = 40
+    over 16 blocks of 3 (DTensor's cut) leaves the last two empty.  The card
+    is faked: the one call path records each launch."""
     from types import SimpleNamespace
+
+    from repro_torch.kernels import _build
     called = []
-    monkeypatch.setattr(DA, "_entry", lambda name, argtypes: (
-        lambda *a: called.append(name) or 0))
+    monkeypatch.setattr(_build, "launch", lambda name, symbol, argtypes,
+                        device, *args, count: called.append((symbol, count)))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: SimpleNamespace(multi_processor_count=SMS))
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev: SimpleNamespace(cuda_stream=0))
     args = _to_torch(_inputs(SHARD_CASES[0]))
     slots = args[3].shape[1]
     blocks = DA.slot_blocks(slots, 16)
     assert [size for _, size in blocks[-3:]] == [1, 0, 0]
     for base, size in blocks:
         view = [t[:, base:base + size] for t in (args[3], args[4])]
-        before, called[:] = DA.SHARD_LAUNCHES, []
+        called[:] = []
         DA._reduce_with(DA._kernel_shard_steps(
             *args[:3], *view, *args[5:], slot_base=base, slots=slots,
             window=0, is_ring=False), None, None)
-        assert DA.SHARD_LAUNCHES == before + (1 if size else 0), (base, size)
-        assert len(called) == (3 if size else 0), (base, size, called)
+        counts = [count for _, count in called]
+        assert counts == ([None, None, "decode_attention_shard"] if size
+                          else []), (base, size, called)
 
 
 @pytest.mark.parametrize("seed", range(4))

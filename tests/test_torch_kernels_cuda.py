@@ -61,6 +61,7 @@ import torch
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import fused_adamw as FA
 from repro_torch.kernels import moe_route as MR
+from repro_torch.kernels._build import LAUNCHES
 
 # The package's ``daxpy`` is the exported function (as in the
 # reference); the module holds the kernel's launcher.
@@ -88,9 +89,9 @@ def card():
 
 @pytest.mark.cuda
 def test_daxpy_kernel_matches_plain_version(card):
-    before = DX.LAUNCHES
+    before = LAUNCHES["daxpy"]
     assert SMOKE.check_daxpy(card)["max_abs_err"] == 0.0
-    assert DX.LAUNCHES > before
+    assert LAUNCHES["daxpy"] > before
 
 
 @pytest.mark.cuda
@@ -108,9 +109,10 @@ DECODE_CASES = [(c, 0) for c in SMOKE.EDGE_CASES] + SMOKE.SCALAR_LOAD_CASES
 @pytest.mark.parametrize("case,offset", DECODE_CASES,
                          ids=[c[0] for c, _ in DECODE_CASES])
 def test_decode_attention_kernels_match_plain_version(card, case, offset):
-    before = DA.LAUNCHES
+    before = LAUNCHES["decode_attention"]
     SMOKE.check_case(case, 0, card, offset)
-    assert DA.LAUNCHES == before + 1      # one count per call, 2-3 launches
+    # One count per call, two or three launches.
+    assert LAUNCHES["decode_attention"] == before + 1
 
 
 SHARD_PARAMS = [(c, p) for c in SMOKE.SHARD_CASES for p in SMOKE.SHARD_COUNTS]
@@ -125,10 +127,10 @@ SHARD_PARAMS += [(("shard-empty-block", "granite-3-8b", 2, 6, 4, 2, 8, "f32",
                          ids=[f"{c[0]}-P{p}" for c, p in SHARD_PARAMS])
 def test_decode_attention_shard_form_matches_plain_version(card, case,
                                                            shards):
-    before = DA.SHARD_LAUNCHES
+    before = LAUNCHES["decode_attention_shard"]
     SMOKE.check_shard_case(case, shards, card)
     # One count per block whose kernels launched; an empty block, none.
-    assert DA.SHARD_LAUNCHES == before + sum(
+    assert LAUNCHES["decode_attention_shard"] == before + sum(
         1 for _, size in DA.slot_blocks(case[3], shards) if size)
 
 
@@ -144,9 +146,9 @@ def test_fused_adamw_kernel_matches_plain_version(card, case):
     m = (torch.randn(shape, generator=g) * 0.01).to(card)
     v = (torch.randn(shape, generator=g).abs() * 0.001).to(card)
     hp = FA.pack_hparams(**SMOKE.ADAMW_HPS, step=step, device=card)
-    before = FA.LAUNCHES
+    before = LAUNCHES["fused_adamw"]
     res = SMOKE.check_adamw_tensors(str(case), p, gr, m, v, hp)
-    assert res["p_max_ulps"] <= 1 and FA.LAUNCHES == before + 1
+    assert res["p_max_ulps"] <= 1 and LAUNCHES["fused_adamw"] == before + 1
 
 
 @pytest.mark.cuda
@@ -192,9 +194,9 @@ def test_decode_attention_on_both_builds(card, build, shape):
     with (DA.cuda_core_build() if build == "cuda-cores"
           else contextlib.nullcontext()):
         for case in _shape_cases(card, shape):
-            before = DA.LAUNCHES
+            before = LAUNCHES["decode_attention"]
             SMOKE.check_case(case, 0, card)
-            assert DA.LAUNCHES == before + 1
+            assert LAUNCHES["decode_attention"] == before + 1
 
 
 @pytest.mark.cuda
@@ -275,12 +277,12 @@ def test_decode_launches_are_counted_per_replay(card):
                         fused_decode=True, device=card)
     n_attn = SMOKE.attention_layers(eng.cfg)
     tok, caches, _ = eng.prefill(np.zeros((4, 16), np.int32))
-    DA.LAUNCHES = 0
+    LAUNCHES["decode_attention"] = 0
     tok, caches, _ = eng.decode(tok[:, None], caches, 16)   # eager + capture
-    assert DA.LAUNCHES == n_attn
+    assert LAUNCHES["decode_attention"] == n_attn
     for i in range(2):                                      # replays
         tok, caches, _ = eng.decode(tok[:, None], caches, 17 + i)
-    assert DA.LAUNCHES == 3 * n_attn
+    assert LAUNCHES["decode_attention"] == 3 * n_attn
     [st] = eng._dec_jit.stats()
     assert st["captured"] and st["calls"] == 3
     assert st["launches_per_replay"] == {"decode_attention": n_attn}

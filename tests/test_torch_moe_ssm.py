@@ -35,6 +35,7 @@ from repro.models import layers as ref_layers
 from repro.models import scaled_down as ref_scaled_down
 from repro_torch.configs import get_config
 from repro_torch.kernels import moe_route
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import layers, scaled_down
 
 
@@ -172,13 +173,13 @@ def test_expert_slots_plain_equals_a_loop_over_the_copies(case):
 
 
 def test_expert_slots_on_the_cpu_run_the_plain_version(monkeypatch):
-    monkeypatch.setattr(moe_route, "LAUNCHES", 0)
+    monkeypatch.setitem(LAUNCHES, "moe_route", 0)
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, 72, (2, 2 * T + 5)))
     got = moe_route.expert_slots(ids, 72, 30)
     want = moe_route.expert_slots_plain(ids, 72, 30)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert moe_route.LAUNCHES == 0
+    assert LAUNCHES["moe_route"] == 0
 
 
 def _ssd_inputs(seed, b=2, t=32, h=3, pdim=4, n=5):

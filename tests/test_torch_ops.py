@@ -27,6 +27,7 @@ from repro.kernels import ops as rops
 from repro.kernels.fused_adamw import pack_hparams as ref_pack_hparams
 from repro_torch.kernels import fused_adamw as FA
 from repro_torch.kernels import ops
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models.convert import params_from_numpy
 
 # The package's ``daxpy`` is the exported function (as in the
@@ -152,13 +153,58 @@ def test_adamw_multi_step_tracks_reference():
 
 
 def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
-    before = (DX.LAUNCHES, FA.LAUNCHES)
+    before = (LAUNCHES["daxpy"], LAUNCHES["fused_adamw"])
     x = torch.randn(300)
     ops.daxpy(1.5, x, x)
     p = torch.randn(300)
     ops.adamw_update(p, torch.randn(300), torch.zeros(300), torch.zeros(300),
                      FA.pack_hparams(**HPS, step=1, device="cpu"))
-    assert (DX.LAUNCHES, FA.LAUNCHES) == before
+    assert (LAUNCHES["daxpy"], LAUNCHES["fused_adamw"]) == before
+
+
+def _fake_entry(monkeypatch, rc: int) -> list:
+    """Route ``_build.launch`` to a fake C entry that returns ``rc``; the
+    card's device guard and stream are faked too.  Returns the calls."""
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import _build
+    calls = []
+    monkeypatch.setattr(_build, "entry", lambda name, symbol, argtypes: (
+        lambda *a: calls.append((name, symbol, a)) or rc))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=7))
+    return calls
+
+
+def test_a_failed_launch_raises_with_the_kernels_name_and_counts_nothing(
+        monkeypatch):
+    from repro_torch.kernels import _build
+    calls = _fake_entry(monkeypatch, rc=700)
+    monkeypatch.setitem(LAUNCHES, "daxpy", 5)
+    with pytest.raises(RuntimeError, match="daxpy kernel daxpy_f32 failed: "
+                                            "cudaError 700"):
+        _build.launch("daxpy", "daxpy_f32", (), torch.device("cpu"), 1.0, 2,
+                      count="daxpy")
+    assert calls == [("daxpy", "daxpy_f32", (1.0, 2, 7))]
+    assert LAUNCHES["daxpy"] == 5
+
+
+def test_a_launch_counts_once_under_its_key(monkeypatch):
+    from repro_torch.kernels import _build
+    calls = _fake_entry(monkeypatch, rc=0)
+    monkeypatch.setitem(LAUNCHES, "decode_attention_shard", 2)
+    monkeypatch.setitem(LAUNCHES, "decode_attention", 3)
+    dev = torch.device("cpu")
+    _build.launch("decode_attention", "decode_attention_shard_sum", (), dev,
+                  count=None)
+    assert LAUNCHES["decode_attention_shard"] == 2
+    _build.launch("decode_attention", "decode_attention_bf16_shard_pv", (),
+                  dev, 4, count="decode_attention_shard")
+    assert LAUNCHES["decode_attention_shard"] == 3
+    assert LAUNCHES["decode_attention"] == 3
+    assert [c[2] for c in calls] == [(7,), (4, 7)]
 
 
 def test_value_errors():

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import prefill_attention as PA
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import layers
 from repro_torch.models.config import scaled_down
 from repro_torch.models.model import forward, init_cache, init_params, prefill
@@ -182,10 +183,10 @@ PREFILL_CASES += [(4, 2048, 32, 4, 128, 1024), (2, 700, 16, 2, 128, 100),
 def test_kernel_matches_plain_version(card, b, length, h, kh, d, window):
     """Within chip_smoke.py's ``prefill_tolerance``: p rounds to bf16
     under a running max of another tile width (64 keys, not 1024)."""
-    before = PA.LAUNCHES
+    before = LAUNCHES["prefill_attention"]
     res = SMOKE.check_prefill(("case", b, length, h, kh, d, window), card,
                               seed=length)
-    assert PA.LAUNCHES == before + 1 and res["share_of_tolerance"] <= 1
+    assert LAUNCHES["prefill_attention"] == before + 1 and res["share_of_tolerance"] <= 1
 
 
 ARCHS = {"chatglm3-6b": 28, "qwen3-moe-30b-a3b": 48}
@@ -213,17 +214,17 @@ def test_a_prefill_launches_the_kernel_once_per_layer(card, arch,
     attend = layers.chunked_attention
     monkeypatch.setattr(layers, "chunked_attention", lambda q, k, v, **kw:
                         (plain.append(q.shape), attend(q, k, v, **kw))[1])
-    before = PA.LAUNCHES
+    before = LAUNCHES["prefill_attention"]
     caches = init_cache(cfg, 4, 320, device=card)
     logits, _ = prefill(params, cfg, caches=caches, tokens=tokens)
     torch.cuda.synchronize()
-    assert PA.LAUNCHES - before == cfg.num_layers and plain == []
+    assert LAUNCHES["prefill_attention"] - before == cfg.num_layers and plain == []
     assert bool(torch.isfinite(logits.float()).all())
     # The train step's forward (no cache) keeps the plain version.
-    before = PA.LAUNCHES
+    before = LAUNCHES["prefill_attention"]
     forward(params, cfg, tokens=tokens)
     torch.cuda.synchronize()
-    assert PA.LAUNCHES == before and len(plain) == cfg.num_layers
+    assert LAUNCHES["prefill_attention"] == before and len(plain) == cfg.num_layers
 
 
 @pytest.mark.cuda
@@ -232,10 +233,10 @@ def test_captured_prefill_attention_replays_are_bit_equal(card):
     eager = PA.prefill_attention(q, k, v)       # sets the shared-memory size
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = PA.LAUNCHES
+    before = LAUNCHES["prefill_attention"]
     with torch.cuda.graph(graph):
         out = PA.prefill_attention(q, k, v)
-    assert PA.LAUNCHES == before + 1
+    assert LAUNCHES["prefill_attention"] == before + 1
     outs = []
     for _ in range(2):
         out.zero_()
