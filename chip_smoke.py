@@ -8,7 +8,8 @@ printing a result:
 
   1. card: name and power limit (nvidia-smi), torch version; TF32 off;
   2. build: every CUDA kernel of the port (decode_attention,
-     prefill_attention, moe_route, daxpy, fused_adamw), one nvcc each, all started together, from the sources
+     prefill_attention, moe_route, moe_experts, daxpy, fused_adamw), one
+     nvcc each, all started together, from the sources
      here; each decode-attention kernel's SASS counted (``cuobjdump``:
      instructions, tensor-core HMMA, cp.async LDGSTS), the tensor-core
      build required to hold HMMA;
@@ -49,6 +50,16 @@ printing a result:
      per replay, and timed (CUDA events, median, L2 flushed first; and its
      graph's replay) beside its bound and its plain version; the serving
      engine's check above also counts it once per MoE layer per replay;
+     then the MoE's expert-FFN kernel against ``expert_ffn_plain`` (the
+     dense einsums) at MOE_EXPERTS_SHAPES (qwen3-moe-30b-a3b's and
+     granite-4.0-h-small's decode calls) under MOE_EXPERTS_ROUTINGS (the
+     cell's, one kept copy, every expert full, one expert holding C copies,
+     two groups), within ``experts_tolerance`` with dead experts' rows
+     exactly 0; captured, replayed twice bit-equal, then replayed under
+     other routings, bit-equal to the eager call under each; and timed
+     (CUDA events, median, L2 flushed first) beside its live-bytes bound,
+     its plain version and the dense einsums alone; the streaming phases
+     count it once per MoE layer per decode replay and never per prefill;
   4. time: kernels and plain version at the chatglm3-6b decode shape and
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
@@ -215,6 +226,10 @@ ADAMW_SOURCE = "src/repro_torch/kernels/csrc/fused_adamw.cu"
 ADAMW_REPLACES = "src/repro/kernels/fused_adamw.py:52"
 PREFILL_SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
 MOE_ROUTE_SOURCE = "src/repro_torch/kernels/csrc/moe_route.cu"
+MOE_EXPERTS_SOURCE = "src/repro_torch/kernels/csrc/moe_experts.cu"
+MOE_EXPERTS_REPLACES = ("none: the reference's expert FFN is plain jnp "
+                        "(src/repro/models/layers.py:496-497, moe_block's "
+                        "jnp.einsums)")
 MOE_ROUTE_REPLACES = ("none: the reference ranks the copies with plain jnp "
                       "(src/repro/models/layers.py, route_group's "
                       "jnp.cumsum)")
@@ -416,6 +431,16 @@ MOE_ROUTE_CASES = [
     ("ragged-last-tile", 1, 1000, 8, 128, 1.25),
 ]
 MOE_ROUTE_TIMED = MOE_ROUTE_CASES[:4]
+# The MoE's expert FFN at the cells' decode calls: (G, E, C, D, F, tokens,
+# experts per token).  qwen3-moe-30b-a3b: 8 slots x top-8 of 128 experts,
+# C = max(ceil(8 * 8 / 128 * 1.25), 8) = 8; granite-4.0-h-small: 4 slots x
+# top-10 of 72, C = 10.  Routings: the cell's (the router's slots of
+# random logits), one kept copy, every expert full, one expert holding C
+# copies with more dropped, and two routing groups of the cell's.
+MOE_EXPERTS_SHAPES = {"qwen3-moe-decode": (1, 128, 8, 2048, 768, 8, 8),
+                      "granite-decode": (1, 72, 10, 4096, 768, 4, 10)}
+MOE_EXPERTS_ROUTINGS = ("cell", "one-copy", "all-live", "one-full",
+                        "two-groups")
 
 
 def log(msg: str) -> None:
@@ -914,6 +939,29 @@ def moe_layers(cfg) -> int:
             + sum(k in MOE_KINDS for k in cfg.tail))
 
 
+def expert_kernel_runs(cfg, mesh=None) -> bool:
+    """Whether ``cfg``'s decode steps run the expert-FFN kernel: an MoE on
+    one device, bf16, SiLU, widths of 64 (``moe_experts.takes``; a decode
+    step of a few slots has capacity <= 16, a prefill of 256 tokens or more
+    has more)."""
+    return (mesh is None and moe_layers(cfg) > 0 and cfg.dtype == "bfloat16"
+            and cfg.act == "silu" and cfg.d_model % 64 == 0
+            and cfg.d_ff % 64 == 0)
+
+
+def check_expert_launches(report: dict, per_decode: int, tag: str) -> None:
+    """A compiled run's expert-FFN launches per replay: ``per_decode`` in
+    the decode step's graph, none in any prefill's."""
+    off = {step: n.get("moe_experts", 0)
+           for step, n in report["launches_per_replay"].items()
+           if n.get("moe_experts", 0) != (per_decode if step == "decode"
+                                          else 0)}
+    if off:
+        raise AssertionError(f"{tag}: moe_experts launches per replay {off},"
+                             f" expected {per_decode} per decode step and "
+                             "none per prefill")
+
+
 def route_inputs(case, dev, seed=0):
     """The experts ids (G, tokens * k) of ``case`` as the router picks
     them (each token's k largest of E normal logits, each expert's logits
@@ -1057,6 +1105,227 @@ def phase_moe_route(dev) -> dict:
             f"{t['launches']} launch(es)): kernel {t['kernel_ms']:.4f} ms, "
             f"graph replay {t['graph_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.5f} ms (bytes), plain {t['plain_ms']:.3f} ms")
+    return {"checks": checks, "captured": captured, "timing": timing}
+
+
+def _experts_weights(shape: str, dev, seed=0):
+    """w_gate, w_in (E, D, F) and w_out (E, F, D) bf16 at ``shape``, drawn
+    on the card at fan-in scale."""
+    import torch
+    _, e, _, d, f, _, _ = MOE_EXPERTS_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple((torch.randn(sh, generator=gen, device=dev) / sh[1] ** 0.5
+                  ).to(torch.bfloat16)
+                 for sh in ((e, d, f), (e, d, f), (e, f, d)))
+
+
+def experts_inputs(shape: str, routing: str, dev, seed=0):
+    """buf (G, E, C, D) bf16 as moe_block's dispatch leaves it (a view of
+    its (G, E*C + 1, D) buffer without the overflow row), dst and keep
+    (G, N) from the router's plain slots, at ``shape`` under ``routing``
+    (MOE_EXPERTS_ROUTINGS), and the live experts per group."""
+    import torch
+    from repro_torch.kernels import moe_route as MR
+    g, e, c, d, _, tokens, k = MOE_EXPERTS_SHAPES[shape]
+    gen = torch.Generator().manual_seed(seed)
+    if routing in ("cell", "two-groups"):
+        g = 2 if routing == "two-groups" else g
+        logits = torch.randn(g, tokens, e, generator=gen)
+        ids = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[..., :k].reshape(g, tokens * k)
+    elif routing == "one-copy":            # one kept copy, one live expert
+        ids = torch.full((g, 1), e // 2)
+    elif routing == "all-live":            # every expert holds C copies
+        ids = (torch.arange(e * c) % e).expand(g, e * c)
+    elif routing == "one-full":            # the last expert: C kept, 3 dropped
+        ids = torch.full((g, c + 3), e - 1)
+    else:
+        raise ValueError(routing)
+    dst, keep = MR.expert_slots_plain(ids.contiguous(), e, c)
+    rows = e * c + 1
+    x = torch.randn(g, ids.shape[1], d, generator=gen).to(torch.bfloat16)
+    full = torch.zeros(g * rows, d, dtype=torch.bfloat16).index_add_(
+        0, (dst + torch.arange(g)[:, None] * rows).reshape(-1),
+        x.reshape(-1, d))
+    buf = full.to(dev).reshape(g, rows, d)[:, :-1].reshape(g, e, c, d)
+    live = [sorted({int(i) // c for i, kp in zip(dg, kg) if kp})
+            for dg, kg in zip(dst.tolist(), keep.tolist())]
+    return buf, dst.to(dev), keep.to(dev), live
+
+
+def experts_tolerance(buf, w_gate, w_in, w_out):
+    """Per element of y_e: 2^-7 of sum_f |h_f| |w_out[f, :]|, with h the
+    plain chain's bf16 hidden values.  The kernel sums each product's terms
+    in another order than cuBLAS (both in f32), so a bf16 output of either
+    GEMM, and so an element of h, may round one step (2^-7 relative) the
+    other way; the out GEMM carries such steps by |w_out|, and y_e's own
+    rounding adds at most one step of |y_e| <= that sum."""
+    import torch
+    from repro_torch.kernels import moe_experts as ME
+    h = ME.ACTS["silu"](torch.einsum("gecd,edf->gecf", buf, w_gate)) \
+        * torch.einsum("gecd,edf->gecf", buf, w_in)
+    return torch.einsum("gecf,efd->gecd", h.float().abs(),
+                        w_out.float().abs()) * 2.0 ** -7
+
+
+def _experts_close(tag: str, got, want, tol, dead) -> float:
+    """Raise unless got is within tol of want and the dead experts' rows
+    are exactly 0; the largest error over its tolerance."""
+    import torch
+    if got[dead].any() or want[dead].any():
+        raise AssertionError(f"moe_experts {tag}: a dead expert's rows are "
+                             "not 0")
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        bad = (err > tol) | ~torch.isfinite(got)
+        raise AssertionError(
+            f"moe_experts {tag}: {int(bad.sum())} of {bad.numel()} values "
+            f"outside the tolerance, the first at {bad.nonzero()[0].tolist()}"
+            f" (max error {float(err.max()):.3g})")
+    return float((err / tol.clamp_min(1e-30)).max())
+
+
+def _dead_rows(buf, live):
+    import torch
+    dead = torch.ones(buf.shape[:2], dtype=torch.bool, device=buf.device)
+    for gi, experts in enumerate(live):
+        dead[gi, experts] = False
+    return dead
+
+
+def check_moe_experts(shape: str, routing: str, dev, seed=0) -> dict:
+    """The expert-FFN kernel against ``expert_ffn_plain`` (cuBLAS's dense
+    einsums on the card) at ``shape`` under ``routing``: within
+    ``experts_tolerance``, dead experts' rows exactly 0, one launch."""
+    from repro_torch.kernels import moe_experts as ME
+    ws = _experts_weights(shape, dev)
+    buf, dst, keep, live = experts_inputs(shape, routing, dev, seed)
+    got = counted_once("moe_experts", f"moe_experts {shape} {routing}",
+                       lambda: ME.expert_ffn(buf, *ws, dst, keep, "silu"))
+    want = ME.expert_ffn_plain(buf, *ws, "silu")
+    ratio = _experts_close(f"{shape} {routing}", got, want,
+                           experts_tolerance(buf, *ws), _dead_rows(buf, live))
+    return {"shape": shape, "routing": routing, "groups": buf.shape[0],
+            "live": [len(x) for x in live],
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_err_over_tol": ratio}
+
+
+def check_moe_experts_captured(dev, shape: str) -> dict:
+    """The kernel in a captured graph (``check_captured``: eager and
+    captured under the cell's routing, replayed twice, bit-equal, one
+    launch per replay); then the graph replayed under other routings (one
+    kept copy, every expert full, another seed's) must give the eager
+    kernel's result under each, bit for bit: the experts it skips are read
+    from dst and keep on the device at every replay.  A graph holds one
+    call shape, so the other routings' copies are padded to the cell's
+    with dropped ones (keep False), which choose no expert."""
+    import torch
+
+    from repro_torch.kernels import moe_experts as ME
+    from repro_torch.launch.compile import CompiledStep
+    ws = _experts_weights(shape, dev)
+    buf, dst, keep, live = experts_inputs(shape, "cell", dev)
+    want = ME.expert_ffn_plain(buf, *ws, "silu")
+    tol = experts_tolerance(buf, *ws)
+
+    def fn(buf, dst, keep):
+        return ME.expert_ffn(buf, *ws, dst, keep, "silu")
+    _, st = check_captured(
+        dev, f"moe_experts-{shape}", fn, (buf, dst, keep), "moe_experts",
+        lambda got: _experts_close(f"{shape} (compiled)", got, want, tol,
+                                   _dead_rows(buf, live)))
+    step = CompiledStep(fn, device=dev, name=f"moe_experts-{shape}-b")
+    step(buf, dst, keep)                   # captured under the cell's routing
+    replays = []
+    for routing, seed in (("one-copy", 0), ("one-full", 0), ("cell", 7)):
+        b2, d2, k2, live2 = experts_inputs(shape, routing, dev, seed)
+        pad = dst.shape[1] - d2.shape[1]
+        d2 = torch.cat([d2, d2.new_full((1, pad),
+                                        buf.shape[1] * buf.shape[2])], 1)
+        k2 = torch.cat([k2, k2.new_zeros((1, pad))], 1)
+        eager = ME.expert_ffn(b2, *ws, d2, k2, "silu")
+        got = step(b2, d2, k2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, eager):
+            raise AssertionError(f"moe_experts {shape}: the graph captured "
+                                 f"under the cell's routing, replayed under "
+                                 f"{routing}, differs from the eager call")
+        _experts_close(f"{shape} replayed under {routing}", got,
+                       ME.expert_ffn_plain(b2, *ws, "silu"),
+                       experts_tolerance(b2, *ws), _dead_rows(b2, live2))
+        replays.append({"routing": routing, "live": len(live2[0])})
+    log(f"[capture] moe_experts {shape}: captured in {st['capture_s']:.3f} s "
+        f"and replayed twice, bit-equal, one launch per replay; the graph "
+        f"replayed under {', '.join(r['routing'] for r in replays)} "
+        f"({', '.join(str(r['live']) for r in replays)} live experts) gave "
+        "the eager kernel's result bit for bit")
+    return {"shape": shape, "capture_s": st["capture_s"],
+            "replayed_under": replays}
+
+
+def time_moe_experts(shape: str, dev) -> dict:
+    """The kernel at ``shape`` under the cell's routing (CUDA events,
+    median, L2 flushed first) and one replay of a graph holding the call,
+    beside its bound (the live experts' weights, buf and y_e once over the
+    HBM rate), the plain version (the dense chain over every expert) and
+    the dense einsums alone (cuBLAS, the yardstick)."""
+    import torch
+    from repro_torch.kernels import moe_experts as ME
+    ws = _experts_weights(shape, dev)
+    buf, dst, keep, live = experts_inputs(shape, "cell", dev)
+    kernel_ms = time_ms(lambda: ME.expert_ffn(buf, *ws, dst, keep, "silu"),
+                        dev)
+    plain_ms = time_ms(lambda: ME.expert_ffn_plain(buf, *ws, "silu"), dev,
+                       reps=50, warmup=5)
+    h = ME.ACTS["silu"](torch.einsum("gecd,edf->gecf", buf, ws[0])) \
+        * torch.einsum("gecd,edf->gecf", buf, ws[1])
+
+    def einsums():
+        torch.einsum("gecd,edf->gecf", buf, ws[0])
+        torch.einsum("gecd,edf->gecf", buf, ws[1])
+        torch.einsum("gecf,efd->gecd", h, ws[2])
+    einsum_ms = time_ms(einsums, dev, reps=50, warmup=5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ME.expert_ffn(buf, *ws, dst, keep, "silu")
+    graph_ms = time_ms(graph.replay, dev)
+    del graph
+    g, e, c, d = buf.shape
+    f = ws[0].shape[-1]
+    n_live = sum(len(x) for x in live)
+    nbytes = n_live * 3 * d * f * 2 + 2 * g * e * c * d * 2
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"shape": shape, "dims": f"G={g} E={e} C={c} D={d} F={f}",
+            "live": n_live, "kernel_ms": kernel_ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "dense_einsum_ms": einsum_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "bound_share": bound_ms / kernel_ms,
+            "l2": "flushed before each launch"}
+
+
+def phase_moe_experts(dev) -> dict:
+    """The MoE's expert-FFN kernel against its plain version at both cells'
+    decode shapes under every MOE_EXPERTS_ROUTINGS, captured and replayed
+    (under new routings too), then timed under the cells' routing."""
+    checks = [check_moe_experts(sh, r, dev) for sh in MOE_EXPERTS_SHAPES
+              for r in MOE_EXPERTS_ROUTINGS]
+    for c in checks:
+        log(f"[check] moe_experts {c['shape']} {c['routing']} (G="
+            f"{c['groups']}, live experts {c['live']}): within the "
+            f"tolerance (largest error {c['max_abs_err']:.4g}, "
+            f"{c['max_err_over_tol']:.3f} of it), dead experts exactly 0")
+    captured = [check_moe_experts_captured(dev, sh)
+                for sh in MOE_EXPERTS_SHAPES]
+    timing = [time_moe_experts(sh, dev) for sh in MOE_EXPERTS_SHAPES]
+    card = card_line()
+    for t in timing:
+        log(f"[time] {card}: moe_experts at {t['shape']} ({t['dims']}, "
+            f"{t['live']} live experts): kernel {t['kernel_ms']:.4f} ms, "
+            f"graph replay {t['graph_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms (bytes, {t['bound_share']:.1%} of it), "
+            f"plain {t['plain_ms']:.4f} ms, dense einsums "
+            f"{t['dense_einsum_ms']:.4f} ms")
     return {"checks": checks, "captured": captured, "timing": timing}
 
 
@@ -1239,6 +1508,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
             else ("decode_attention", "decode_attention_shard")))
         prefill_launches = LAUNCHES["prefill_attention"]
         route_launches = LAUNCHES["moe_route"]
+        expert_launches = LAUNCHES["moe_experts"]
     finally:
         undo()
         undo_rec()
@@ -1270,6 +1540,14 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
     if route_launches % max(n_moe, 1) or bool(route_launches) != bool(n_moe):
         raise AssertionError(f"moe_route launched {route_launches} times over "
                              f"{n_moe} MoE layers")
+    # The expert-FFN kernel: once per MoE layer of every decode step, warm-up
+    # decodes included, and never in a prefill.
+    per_decode = n_moe if expert_kernel_runs(cfg, mesh) else 0
+    check_expert_launches(compiled, per_decode, f"{arch} {tag}")
+    if expert_launches != per_decode * (m.decode_jobs + n_lengths):
+        raise AssertionError(f"moe_experts launched {expert_launches} times "
+                             f"while streaming, expected {per_decode} x "
+                             f"({m.decode_jobs} + {n_lengths})")
     # Every decode but the first warm-up one, which captures the graph.
     if sync_check and checked[0] != m.decode_jobs + n_lengths - 1:
         raise AssertionError(f"{checked[0]} decode steps ran under the sync "
@@ -1313,6 +1591,7 @@ def phase_stream(dev, pipeline: bool = False, arch: str = ARCH,
            "prefill_jobs": m.prefill_jobs, "decode_jobs": m.decode_jobs,
            "launches": launches, "prefill_launches": prefill_launches,
            "moe_route_launches": route_launches,
+           "moe_experts_launches": expert_launches,
            "credit_reads": len(reads), "decode_tokens": decode_tokens, "decode_s": decode_s,
            "prefill_s": prefill_s,
            "decode_tok_s": decode_tokens / decode_s,
@@ -1494,6 +1773,14 @@ def check_no_sync(dev) -> dict:
             raise AssertionError(f"{arch}: {route} moe_route launches "
                                  f"for three replays ({per_replay} per "
                                  f"decode replay), expected 3 x {n_moe}")
+        # The expert-FFN kernel: once per MoE layer in each decode replay
+        # where the config takes it (not in f32), never in the prefill.
+        experts = n_moe if expert_kernel_runs(eng.cfg) else 0
+        if LAUNCHES["moe_experts"] != 2 * experts or \
+                per_replay.get("moe_experts", 0) != experts:
+            raise AssertionError(f"{arch}: {LAUNCHES['moe_experts']} "
+                                 f"moe_experts launches for two decode "
+                                 f"replays, expected 2 x {experts}")
         res[arch] = {"steps_queued": len(pend), "replay_launches": decode,
                      "graphs": len(eng.compiled_steps())}
     log(f"[sync] prefill_into_slots_async and decode_async replayed their "
@@ -1612,6 +1899,9 @@ def phase_stream_fused_vs_unfused(dev, arch: str = ARCH,
                 raise AssertionError(f"{arch} {name}: moe_route launches per "
                                      f"replay {off}, expected "
                                      f"{moe_layers(cfg)}")
+            check_expert_launches(
+                report, moe_layers(cfg) if expert_kernel_runs(cfg) else 0,
+                f"{arch} {name}")
         del out, engines
     if plans["fused"] != plans["unfused"] or not streams["fused"]:
         raise AssertionError(f"{arch}: the simulated schedule differs "
@@ -3681,6 +3971,10 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     # captured, then timed at the cells' refill and decode shapes.
     results["moe_route"] = mr = phase_moe_route(dev)
     free()
+    # The MoE's expert-FFN kernel: against its plain version at the cells'
+    # decode shapes, captured and replayed under new routings, then timed.
+    results["moe_experts"] = me = phase_moe_experts(dev)
+    free()
 
     # 4. Timing at the full decode shape.
     args, lens = make_inputs(FULL_CASE, 0, dev)
@@ -3947,6 +4241,18 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
          "shapes": {t["case"]: {k: t[k] for k in (
              "shape", "kernel_ms", "graph_ms", "plain_ms", "bound_ms")}
              for t in mr["timing"]}},
+        {"name": "moe_experts", "route": "cuda",
+         "source": MOE_EXPERTS_SOURCE, "replaces": MOE_EXPERTS_REPLACES,
+         "launches": results["moe_stream"]["moe_experts_launches"],
+         "max_abs_err": max(c["max_abs_err"] for c in me["checks"]),
+         "ms": me["timing"][0]["kernel_ms"],
+         "plain_ms": me["timing"][0]["plain_ms"],
+         "bound_ms": me["timing"][0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": me["timing"][0]["dense_einsum_ms"],
+         "shapes": {t["shape"]: {k: t[k] for k in (
+             "dims", "live", "kernel_ms", "graph_ms", "plain_ms",
+             "dense_einsum_ms", "bound_ms", "bound_share")}
+             for t in me["timing"]}},
         {"name": "daxpy", "route": "cuda", "source": DAXPY_SOURCE,
          "replaces": DAXPY_REPLACES,
          "launches": results["daxpy_offload"]["launches"],

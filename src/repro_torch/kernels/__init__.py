@@ -3,6 +3,7 @@
   decode_attention — the fused decode-attention step (serving);
   prefill_attention — the prompt's causal attention (serving prefills);
   moe_route        — the MoE router's expert slots (every MoE layer);
+  moe_experts      — the MoE's expert FFN at decode-sized capacity;
   daxpy            — ``a*x + y``, the paper's offloaded kernel;
   fused_adamw      — the AdamW update (training);
   ops              — any-shape wrappers and the ``KERNELS`` registry;

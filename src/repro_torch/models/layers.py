@@ -41,6 +41,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import moe_experts
 from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   decode_attention_shard,
                                                   fused_decode_attention,
@@ -571,8 +572,7 @@ def _decode_on_slot_blocks(ctx: ShardCtx, cache: dict, q, k, v, idx,
 # --------------------------------------------------------------------------- #
 # Dense FFN
 # --------------------------------------------------------------------------- #
-_ACTS = {"silu": F.silu,
-         "gelu": lambda t: F.gelu(t, approximate="tanh")}
+_ACTS = moe_experts.ACTS
 
 
 def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
@@ -651,6 +651,13 @@ def _expert_einsum(ctx: ShardCtx, eq: str, a: torch.Tensor,
                                   shape, device="meta").stride())
 
 
+def _experts_kernel(buf: torch.Tensor, weights: tuple, act: str,
+                    ctx: ShardCtx) -> bool:
+    """Whether the expert FFN runs as the kernel: off a mesh, where
+    ``moe_experts.takes`` the call (a mesh keeps the einsums)."""
+    return not ctx.active and moe_experts.takes(buf, *weights, act)
+
+
 def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
               ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Top-k MoE: route, scatter into per-expert capacity slots, the gated
@@ -662,7 +669,10 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     axis for routing and the experts over the model axis for the FFN, at
     the reference's constraint points.  A ``"shared"`` expert (a gated MLP
     every token runs, ``cfg.shared_expert_ff`` wide) adds its output to the
-    routed experts'.
+    routed experts'.  Off a mesh, a call that ``kernels.moe_experts.takes``
+    (CUDA, bf16, SiLU, at most 16 slots an expert, no gradient: a decode
+    step) runs the expert FFN as the hand-written kernel, which reads only
+    the experts some kept copy chose; every other call runs the einsums.
     """
     b, s, d = x.shape
     e, k, g = cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_groups
@@ -711,17 +721,24 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         buf = ctx.constrain(buf, all_axes, None, None, None)
     buf = ctx.constrain(buf, ctx.dp, ctx.tp, None, None)   # the EP all-to-all
 
-    act = _ACTS[cfg.act]
-    h = act(_expert_einsum(ctx, "gecd,edf->gecf", buf, p["w_gate"])) \
-        * _expert_einsum(ctx, "gecd,edf->gecf", buf, p["w_in"])
-    h = ctx.constrain(h, ctx.dp, ctx.tp, None, None)
-    y_e = _expert_einsum(ctx, "gecf,efd->gecd", h, p["w_out"])
-    y_e = ctx.constrain(y_e, ctx.dp, ctx.tp, None, None)
+    weights = (p["w_gate"], p["w_in"], p["w_out"])
+    if _experts_kernel(buf, weights, cfg.act, ctx):
+        # Decode-sized capacity on one card: the kernel reads only the
+        # weights of the experts a kept copy chose (dst, keep on the device).
+        y_e = moe_experts.expert_ffn(buf, *weights, dst, keep, cfg.act)
+    else:
+        act = _ACTS[cfg.act]
+        h = act(_expert_einsum(ctx, "gecd,edf->gecf", buf, p["w_gate"])) \
+            * _expert_einsum(ctx, "gecd,edf->gecf", buf, p["w_in"])
+        h = ctx.constrain(h, ctx.dp, ctx.tp, None, None)
+        y_e = _expert_einsum(ctx, "gecf,efd->gecd", h, p["w_out"])
+        y_e = ctx.constrain(y_e, ctx.dp, ctx.tp, None, None)
+        del h
     y_e = ctx.constrain(y_e, all_axes, None, None, None)   # xg's placements
     # The dispatch buffer and the slots' hidden values are dead once the
     # experts have run: freed before the combine's copies are made (a long
     # prefill's largest transients).
-    del buf, h
+    del buf
     y = _on_local_blocks(ctx, combine, (y_e, gates, dst, keep))
     # Groups back over the data axes alone before they merge into rows,
     # which the model axis does not split.

@@ -27,6 +27,14 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
     groups, one tile of copies less one, one, one more, a ragged last
     tile); a captured call replayed twice, bit-equal, one launch counted
     per replay; what it does not take raises;
+  * the MoE's expert-FFN kernel: within chip_smoke.py's
+    ``experts_tolerance`` of ``expert_ffn_plain`` at qwen3-moe-30b-a3b's
+    and granite-4.0-h-small's decode calls under the cell's routing, one
+    kept copy, every expert full, one expert holding C copies and two
+    routing groups, dead experts' rows exactly 0; a captured call replayed
+    twice bit-equal, one launch per replay, and replayed under other
+    routings equal to the eager call under each; what it does not take
+    raises;
   * the serving engine queues a prefill-into-slots step and decode steps
     with no host sync (``torch.cuda.set_sync_debug_mode("error")``): graph
     replays, each adding its captured decode-kernel launches and, on the
@@ -60,6 +68,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import fused_adamw as FA
+from repro_torch.kernels import moe_experts as ME
 from repro_torch.kernels import moe_route as MR
 from repro_torch.kernels._build import LAUNCHES
 
@@ -244,6 +253,73 @@ def test_moe_route_rejects_what_it_does_not_take(card):
         MR.expert_slots(ids, 100_000, 4)
     with pytest.raises(ValueError):
         MR.expert_slots(ids, 8, -1)
+
+
+# --------------------------------------------------------------------------- #
+# The MoE's expert-FFN kernel
+# --------------------------------------------------------------------------- #
+EXPERT_PARAMS = [(sh, r) for sh in SMOKE.MOE_EXPERTS_SHAPES
+                 for r in SMOKE.MOE_EXPERTS_ROUTINGS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,routing", EXPERT_PARAMS,
+                         ids=[f"{sh}-{r}" for sh, r in EXPERT_PARAMS])
+def test_moe_experts_kernel_matches_plain_version(card, shape, routing):
+    """Within chip_smoke.py's ``experts_tolerance`` (2^-7 of
+    sum_f |h_f||w_out|: the kernel sums in another order than cuBLAS, so a
+    bf16 output of either GEMM may round one step the other way), dead
+    experts' rows exactly 0, one launch counted."""
+    res = SMOKE.check_moe_experts(shape, routing, card)
+    assert res["max_err_over_tol"] <= 1
+    if routing in ("one-copy", "one-full"):
+        assert res["live"] == [1]
+    if routing == "all-live":
+        assert res["live"] == [SMOKE.MOE_EXPERTS_SHAPES[shape][1]]
+    if routing == "two-groups":
+        assert res["groups"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SMOKE.MOE_EXPERTS_SHAPES))
+def test_captured_moe_experts_follow_the_routing_of_each_replay(card, shape):
+    """Two replays of a captured call bit-equal, one launch per replay; a
+    graph captured under the cell's routing and replayed under another
+    gives the eager result under that routing."""
+    res = SMOKE.check_moe_experts_captured(card, shape)
+    assert [r["live"] for r in res["replayed_under"]][:2] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_moe_experts_rejects_what_it_does_not_take(card):
+    g, e, c, d, f = 1, 8, 4, 128, 64
+    buf = torch.zeros(g, e, c, d, dtype=torch.bfloat16, device=card)
+    wg = torch.zeros(e, d, f, dtype=torch.bfloat16, device=card)
+    wo = torch.zeros(e, f, d, dtype=torch.bfloat16, device=card)
+    dst = torch.zeros(g, 8, dtype=torch.int64, device=card)
+    keep = torch.ones(g, 8, dtype=torch.bool, device=card)
+    assert ME.expert_ffn(buf, wg, wg, wo, dst, keep, "silu").shape == buf.shape
+    with pytest.raises(TypeError):                    # dtype
+        ME.expert_ffn(buf.float(), wg, wg, wo, dst, keep, "silu")
+    with pytest.raises(ValueError):                   # a weight's layout
+        ME.expert_ffn(buf, wg.transpose(1, 2).contiguous().transpose(1, 2),
+                      wg, wo, dst, keep, "silu")
+    with pytest.raises(ValueError):                   # buf's rows
+        ME.expert_ffn(buf.transpose(1, 2).contiguous().transpose(1, 2), wg,
+                      wg, wo, dst, keep, "silu")
+    big = torch.zeros(g, e, 17, d, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):                   # C > 16
+        ME.expert_ffn(big, wg, wg, wo, dst, keep, "silu")
+    with pytest.raises(ValueError):                   # D not a multiple of 64
+        ME.expert_ffn(buf[..., :96].contiguous(), wg[:, :96].contiguous(),
+                      wg[:, :96].contiguous(), wo[..., :96].contiguous(),
+                      dst, keep, "silu")
+    with pytest.raises(ValueError):                   # fewer experts than buf's
+        ME.expert_ffn(buf, wg[:4], wg[:4], wo[:4], dst, keep, "silu")
+    with pytest.raises(ValueError):                   # no kernel for gelu
+        ME.expert_ffn(buf, wg, wg, wo, dst, keep, "gelu")
+    assert not ME.takes(big, wg, wg, wo, "silu")
+    assert not ME.takes(buf.float(), wg, wg, wo, "silu")
 
 
 @pytest.mark.cuda

@@ -11,6 +11,12 @@
     equal to a walk over the copies with running per-expert counters, at
     the decode shapes, the kernel's tile edges, with drops and two groups;
     ``expert_slots`` on CPU tensors runs it and launches nothing;
+  * ``kernels.moe_experts.expert_ffn_plain`` (the expert FFN) equal bit
+    for bit to ``moe_block``'s einsum chain at stand-ins of the decode
+    calls' shapes (bf16 and f32), an expert with no copy exactly 0, and
+    ``expert_ffn`` on CPU tensors runs it; ``moe_block`` takes the kernel
+    (the card faked) only off a mesh, in bf16 with SiLU, at most 16 slots
+    an expert and no gradient, with the same output either way;
   * ``ssd_chunked`` against the reference (``rtol=atol=1e-5``) and against
     a step-by-step f64 recurrence of the SSM (``rtol=1e-4, atol=1e-5``: f32
     chunk sums against a sequential scan);
@@ -34,7 +40,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import layers as ref_layers
 from repro.models import scaled_down as ref_scaled_down
 from repro_torch.configs import get_config
-from repro_torch.kernels import moe_route
+from repro_torch.kernels import moe_experts, moe_route
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import layers, scaled_down
 
@@ -180,6 +186,118 @@ def test_expert_slots_on_the_cpu_run_the_plain_version(monkeypatch):
     want = moe_route.expert_slots_plain(ids, 72, 30)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert LAUNCHES["moe_route"] == 0
+
+
+def _einsum_chain(buf, w_gate, w_in, w_out, act):
+    """moe_block's dense expert FFN off a mesh: ``_expert_einsum`` under
+    ``NO_SHARD``, the activation and the product."""
+    ctx = layers.NO_SHARD
+    h = layers._ACTS[act](layers._expert_einsum(
+        ctx, "gecd,edf->gecf", buf, w_gate)) \
+        * layers._expert_einsum(ctx, "gecd,edf->gecf", buf, w_in)
+    return layers._expert_einsum(ctx, "gecf,efd->gecd", h, w_out)
+
+
+def _ffn_inputs(g, e, c, d, f, dtype, seed=3):
+    """A dispatch buffer as the router leaves it (each expert's first
+    slots hold copies, the rest and a third of the experts all zeros), the
+    weights, and dst and keep naming the live slots."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, c + 1, (g, e), generator=gen)
+    counts[:, torch.randperm(e, generator=gen)[:e // 3]] = 0
+    live = torch.arange(c)[None, None] < counts[..., None]      # (G, E, C)
+    buf = torch.randn(g, e, c, d, generator=gen) * live[..., None]
+    ws = [torch.randn(e, d, f, generator=gen) / d ** 0.5,
+          torch.randn(e, d, f, generator=gen) / d ** 0.5,
+          torch.randn(e, f, d, generator=gen) / f ** 0.5]
+    slots = live.reshape(g, e * c)
+    dst = torch.where(slots, torch.arange(e * c), e * c)
+    return (buf.to(dtype), *(w.to(dtype) for w in ws), dst, slots)
+
+
+# (G, E, C, D, F): the decode calls' (G, E, C) of qwen3-moe-30b-a3b (8
+# tokens x top-8 of 128 experts) and granite-4.0-h-small (4 x top-10 of
+# 72), with D and F cut from 2048 / 4096 and 768 for the CPU; two groups.
+FFN_CASES = {
+    "decode-qwen3-moe": (1, 128, 8, 128, 64),
+    "decode-granite": (1, 72, 10, 256, 64),
+    "two-groups": (2, 16, 12, 64, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(FFN_CASES))
+def test_expert_ffn_plain_equals_the_einsum_chain(case, dtype, monkeypatch):
+    """``expert_ffn_plain`` is moe_block's einsum chain bit for bit, and
+    ``expert_ffn`` on CPU tensors runs it and launches nothing."""
+    monkeypatch.setitem(LAUNCHES, "moe_experts", 0)
+    buf, wg, wi, wo, dst, keep = _ffn_inputs(*FFN_CASES[case], dtype)
+    want = _einsum_chain(buf, wg, wi, wo, "silu")
+    assert torch.equal(moe_experts.expert_ffn_plain(buf, wg, wi, wo, "silu"),
+                       want)
+    assert torch.equal(moe_experts.expert_ffn(buf, wg, wi, wo, dst, keep,
+                                              "silu"), want)
+    # An expert with no copy gives exact zeros, which the kernel writes.
+    dead = buf.flatten(2).eq(0).all(-1)
+    assert dead.any() and not want[dead].any()
+    assert LAUNCHES["moe_experts"] == 0
+
+
+# route: (card faked, dtype, batch rows, act, weights need grad, kernel
+# calls).  The MoE stand-in has 8 experts of top-2 at capacity factor 1.25:
+# 3 x 16 tokens give 15 slots an expert, 4 x 16 give 20.
+EXPERT_ROUTES = {
+    "kernel": (True, "bfloat16", 3, "silu", False, 1),
+    "cpu-tensor": (False, "bfloat16", 3, "silu", False, 0),
+    "f32": (True, "float32", 3, "silu", False, 0),
+    "capacity-above-16": (True, "bfloat16", 4, "silu", False, 0),
+    "requires-grad": (True, "bfloat16", 3, "silu", True, 0),
+    "gelu": (True, "bfloat16", 3, "gelu", False, 0),
+}
+
+
+@pytest.mark.parametrize("route", list(EXPERT_ROUTES))
+def test_moe_block_takes_the_expert_kernel_only_where_it_should(route,
+                                                                monkeypatch):
+    """The card is faked (``_on_card``) and the kernel's wrapper replaced
+    by a counter that runs the plain version; the dense chain's einsums
+    counted.  Either route gives the same output."""
+    on_card, dtype, b, act, grad, want = EXPERT_ROUTES[route]
+    _, cfg = _cfgs("qwen3-moe-30b-a3b", dtype=dtype, act=act)
+    rng = np.random.default_rng(4)
+    p = {k: torch.from_numpy(v).to(getattr(torch, dtype)).requires_grad_(grad)
+         for k, v in _moe_params(cfg, rng).items()}
+    x = torch.from_numpy(rng.standard_normal((b, 16, cfg.d_model))
+                         ).to(getattr(torch, dtype))
+    cap = layers.moe_capacity(b * 16, cfg)
+    assert (cap <= moe_experts.MAX_ROWS) == (b == 3)
+    y_dense = layers.moe_block(x, p, cfg)
+    monkeypatch.setitem(LAUNCHES, "moe_experts", 0)
+    if on_card:
+        monkeypatch.setattr(moe_experts, "_on_card", lambda t: True)
+    entered, dense = [], []
+    monkeypatch.setattr(moe_experts, "expert_ffn",
+                        lambda buf, wg, wi, wo, dst, keep, a:
+                        (entered.append(buf.shape),
+                         moe_experts.expert_ffn_plain(buf, wg, wi, wo, a))[1])
+    einsum = layers._expert_einsum
+    monkeypatch.setattr(layers, "_expert_einsum", lambda *a:
+                        (dense.append(a[1]), einsum(*a))[1])
+    y = layers.moe_block(x, p, cfg)
+    assert len(entered) == want and len(dense) == 3 * (1 - want)
+    assert entered == [(1, cfg.num_experts, cap, cfg.d_model)] * want
+    assert torch.equal(y.detach(), y_dense.detach())
+    assert y.requires_grad == grad
+    assert LAUNCHES["moe_experts"] == 0
+
+
+def test_expert_kernel_rule_keeps_a_mesh_on_the_einsums(monkeypatch):
+    monkeypatch.setattr(moe_experts, "_on_card", lambda t: True)
+    buf, *weights, _, _ = _ffn_inputs(1, 8, 4, 64, 64, torch.bfloat16)
+    assert layers._experts_kernel(buf, weights, "silu", layers.NO_SHARD)
+    assert not layers._experts_kernel(
+        buf, weights, "silu", layers.ShardCtx(tp="model", active=True))
 
 
 def _ssd_inputs(seed, b=2, t=32, h=3, pdim=4, n=5):
