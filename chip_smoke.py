@@ -36,8 +36,11 @@ printing a result:
      replay; and the kernel captured and replayed in a graph at a shape
      whose launch sets its shared-memory attribute (G = 64); then the
      prefill-attention kernel against its plain version at the benchmark
-     cells' prefill shapes and at ragged, windowed, D = 64 and D = 256
-     shapes (within ``prefill_tolerance``), and timed at the cells' shapes
+     cells' prefill shapes, at kanana-2-30b-a3b's refills (multi-head
+     latent attention's q and k 192 wide, v 128, 32 heads each with its own
+     key and value: PREFILL_MLA_SHAPES) and at ragged, windowed, D = 64 and
+     D = 256 shapes (within ``prefill_tolerance``), and timed at the cells'
+     shapes
      (CUDA events, median, L2 flushed first) beside its bound, its plain
      version and an attend-only yardstick,
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
@@ -45,14 +48,16 @@ printing a result:
      expert-slot kernel against its plain version, bit-equal, at
      MOE_ROUTE_CASES (granite-4.0-h-small's 4096 refill and decode call,
      qwen3-moe-30b-a3b's 8 x 512 refill and decode call, capacity factor
-     0.25, two routing groups, the tile's edges and a ragged last tile),
+     0.25, two routing groups, the tile's edges and a ragged last tile,
+     kanana-2-30b-a3b's 4 x 8192 refill and decode call),
      captured in a graph and replayed twice, bit-equal, one launch counted
      per replay, and timed (CUDA events, median, L2 flushed first; and its
      graph's replay) beside its bound and its plain version; the serving
      engine's check above also counts it once per MoE layer per replay;
      then the MoE's expert-FFN kernel against ``expert_ffn_plain`` (the
-     dense einsums) at MOE_EXPERTS_SHAPES (qwen3-moe-30b-a3b's and
-     granite-4.0-h-small's decode calls) under MOE_EXPERTS_ROUTINGS (the
+     dense einsums) at MOE_EXPERTS_SHAPES (qwen3-moe-30b-a3b's,
+     granite-4.0-h-small's and kanana-2-30b-a3b's decode calls, the last at
+     C = 6) under MOE_EXPERTS_ROUTINGS (the
      cell's, one kept copy, every expert full, one expert holding C copies,
      two groups), within ``experts_tolerance`` with dead experts' rows
      exactly 0; captured, replayed twice bit-equal, then replayed under
@@ -60,6 +65,13 @@ printing a result:
      (CUDA events, median, L2 flushed first) beside its live-bytes bound,
      its plain version and the dense einsums alone; the streaming phases
      count it once per MoE layer per decode replay and never per prefill;
+     then kanana-2-30b-a3b at full width and depth through the engine's
+     compiled steps (``phase_kanana_launches``: a 4-slot refill of
+     KANANA_PROMPT tokens and decode steps), its launches per replay
+     counted: ``prefill_attention`` once per layer per refill (48),
+     ``decode_attention_latent`` once per layer per decode step (48),
+     ``moe_route`` once per MoE layer per call (47) and ``moe_experts``
+     47 per decode step and none per refill;
   4. time: kernels and plain version at the chatglm3-6b decode shape and
      at the three streaming shapes (CUDA events, median, L2 flushed before
      each launch), beside the least time the card could take (bytes over
@@ -405,6 +417,11 @@ PREFILL_SHAPES = (
                                                                   512)]
     + [("glm3-6b.decode-heavy", 8, n, 32, 2, 128) for n in (64, 128, 192,
                                                             256)])
+# kanana-2-30b-a3b's refills, (cell, B, L, H, K, D, Dv): multi-head latent
+# attention decompressed, q and k 128 + 64 wide, v 128, every head its own
+# key and value.
+PREFILL_MLA_SHAPES = [("kanana-2-30b.long-docs", 4, n, 32, 32, 192, 128)
+                      for n in (2048, 4096, 6144, 8192)]
 # Shapes the kernel is held against the plain version at, beyond those:
 # short and ragged prompts, a sliding window, head dims 64 and 256.
 PREFILL_EDGE_SHAPES = [("ragged", 4, 17, 32, 2, 128, 0),
@@ -429,6 +446,8 @@ MOE_ROUTE_CASES = [
     ("one-tile", 1, 2048, 1, 72, 1.25),
     ("tile-plus-one", 1, 2049, 1, 72, 1.25),
     ("ragged-last-tile", 1, 1000, 8, 128, 1.25),
+    ("kanana-refill-4x8192", 1, 4 * 8192, 6, 128, 1.25),
+    ("kanana-decode", 1, 4, 6, 128, 1.25),
 ]
 MOE_ROUTE_TIMED = MOE_ROUTE_CASES[:4]
 # The MoE's expert FFN at the cells' decode calls: (G, E, C, D, F, tokens,
@@ -437,8 +456,14 @@ MOE_ROUTE_TIMED = MOE_ROUTE_CASES[:4]
 # top-10 of 72, C = 10.  Routings: the cell's (the router's slots of
 # random logits), one kept copy, every expert full, one expert holding C
 # copies with more dropped, and two routing groups of the cell's.
+# kanana-2-30b-a3b: 4 slots x top-6 of 128, C = max(ceil(4 * 6 / 128 *
+# 1.25), 6) = 6.
 MOE_EXPERTS_SHAPES = {"qwen3-moe-decode": (1, 128, 8, 2048, 768, 8, 8),
-                      "granite-decode": (1, 72, 10, 4096, 768, 4, 10)}
+                      "granite-decode": (1, 72, 10, 4096, 768, 4, 10),
+                      "kanana-decode": (1, 128, 6, 2048, 768, 4, 6)}
+# The full-width kanana-2-30b-a3b engine's refill length (4 slots).
+KANANA_ARCH = "kanana-2-30b-a3b"
+KANANA_PROMPT = 1024
 MOE_EXPERTS_ROUTINGS = ("cell", "one-copy", "all-live", "one-full",
                         "two-groups")
 
@@ -827,14 +852,15 @@ def bound(case, args) -> tuple[float, str, float, float]:
     return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
 
 
-def prefill_inputs(b, length, h, kh, d, dev, seed=0):
-    """bf16 q (B, L, H, D) and k, v (B, L, K, D), drawn on the CPU; q
-    scaled by 2 so the softmax is peaked as well as flat."""
+def prefill_inputs(b, length, h, kh, d, dev, seed=0, dv=None):
+    """bf16 q (B, L, H, D), k (B, L, K, D) and v (B, L, K, Dv) (Dv = D
+    where None), drawn on the CPU; q scaled by 2 so the softmax is peaked
+    as well as flat."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     q = torch.randn(b, length, h, d, generator=gen) * 2.0
     k = torch.randn(b, length, kh, d, generator=gen)
-    v = torch.randn(b, length, kh, d, generator=gen)
+    v = torch.randn(b, length, kh, dv or d, generator=gen)
     return tuple(t.to(torch.bfloat16).to(dev) for t in (q, k, v))
 
 
@@ -854,19 +880,20 @@ def prefill_tolerance(q, k, v, want, window: int = 0):
 
 def check_prefill(shape, dev, seed=0) -> dict:
     """The prefill-attention kernel against its plain version at ``shape``
-    ((tag, B, L, H, K, D[, window])): within ``prefill_tolerance``."""
+    ((tag, B, L, H, K, D[, window[, Dv]])): within ``prefill_tolerance``."""
     import torch
     from repro_torch.kernels import prefill_attention as PA
     tag, b, length, h, kh, d, *rest = shape
     window = rest[0] if rest else 0
-    q, k, v = prefill_inputs(b, length, h, kh, d, dev, seed)
+    dv = rest[1] if len(rest) > 1 else d
+    q, k, v = prefill_inputs(b, length, h, kh, d, dev, seed, dv)
     got = PA.prefill_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     want = PA.prefill_attention_plain(q, k, v, window=window)
     err = (got.float() - want.float()).abs()
     tol = prefill_tolerance(q, k, v, want, window)
     res = {"shape": f"{tag} B={b} L={length} H={h} K={kh} D={d} "
-                    f"window={window}",
+                    + (f"Dv={dv} " if dv != d else "") + f"window={window}",
            "max_abs_err": err.max().item(),
            "share_of_tolerance": (err / tol).max().item()}
     if not bool((err <= tol).all()):
@@ -874,28 +901,31 @@ def check_prefill(shape, dev, seed=0) -> dict:
     return res
 
 
-def prefill_bound(b, length, h, kh, d) -> tuple[float, str, int, int]:
+def prefill_bound(b, length, h, kh, d, dv=None
+                  ) -> tuple[float, str, int, int]:
     """Least time of one prefill attention (one layer): the causal q.K^T
-    and p@V, 4*B*H*D*L*(L+1)/2 operations, over the bf16 peak, or q, k, v
-    read and the output written once over the HBM rate, whichever is
-    longer (``bench/metrics/prefill_attention_roofline.py``'s count)."""
-    ops = 4 * b * h * d * length * (length + 1) // 2
-    nbytes = b * length * (2 * h + 2 * kh) * d * 2
+    and p@V, 2*B*H*(D + Dv)*L*(L+1)/2 operations, over the bf16 peak, or
+    q, k, v read and the output written once over the HBM rate, whichever
+    is longer (the families' ``prefill_attention_bytes_ops``)."""
+    dv = dv or d
+    ops = 2 * b * h * (d + dv) * length * (length + 1) // 2
+    nbytes = b * length * (h * (d + dv) + kh * (d + dv)) * 2
     t_ops, t_bytes = ops / PEAK_OPS_PER_S["bf16"], nbytes / HBM_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, by, nbytes, ops
 
 
 def time_prefill_attention(shape, dev) -> dict:
-    """The prefill-attention kernel at ``shape`` ((cell, B, L, H, K, D)),
-    CUDA events, median, L2 flushed before each launch, beside its bound,
-    its plain version and an attend-only yardstick,
+    """The prefill-attention kernel at ``shape`` ((cell, B, L, H, K, D[,
+    Dv])), CUDA events, median, L2 flushed before each launch, beside its
+    bound, its plain version and an attend-only yardstick,
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (timed only; the port never calls it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import prefill_attention as PA
-    cell, b, length, h, kh, d = shape
-    q, k, v = prefill_inputs(b, length, h, kh, d, dev)
+    cell, b, length, h, kh, d, *rest = shape
+    dv = rest[0] if rest else d
+    q, k, v = prefill_inputs(b, length, h, kh, d, dev, dv=dv)
     kernel_ms = time_ms(lambda: PA.prefill_attention(q, k, v), dev, reps=50,
                         warmup=5)
     plain_ms = time_ms(lambda: PA.prefill_attention_plain(q, k, v), dev,
@@ -903,8 +933,10 @@ def time_prefill_attention(shape, dev) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), dev, reps=50, warmup=5)
-    bound_ms, by, nbytes, ops = prefill_bound(b, length, h, kh, d)
-    return {"cell": cell, "shape": f"B={b} L={length} H={h} K={kh} D={d}",
+    bound_ms, by, nbytes, ops = prefill_bound(b, length, h, kh, d, dv)
+    return {"cell": cell,
+            "shape": f"B={b} L={length} H={h} K={kh} D={d}"
+                     + (f" Dv={dv}" if dv != d else ""),
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "attend_only_sdpa_ms": sdpa_ms, "bound_ms": bound_ms,
             "bound_by": by, "bytes": nbytes, "ops": ops,
@@ -917,11 +949,14 @@ def phase_prefill_attention(dev) -> dict:
     prefill shapes and the edge shapes, then timed at the cells' shapes."""
     checks = [check_prefill(s, dev) for s in PREFILL_SHAPES
               + PREFILL_EDGE_SHAPES]
+    checks += [check_prefill((*s[:6], 0, s[6]), dev)
+               for s in PREFILL_MLA_SHAPES]
     for c in checks:
         log(f"[check] prefill_attention {c['shape']}: largest error "
             f"{c['max_abs_err']:.3g}, {c['share_of_tolerance']:.3f} of the "
             "tolerance")
-    timing = [time_prefill_attention(s, dev) for s in PREFILL_SHAPES]
+    timing = [time_prefill_attention(s, dev) for s in PREFILL_SHAPES
+              + PREFILL_MLA_SHAPES]
     card = card_line()
     for t in timing:
         log(f"[time] {card}: prefill_attention at {t['shape']} "
@@ -1329,6 +1364,52 @@ def phase_moe_experts(dev) -> dict:
     return {"checks": checks, "captured": captured, "timing": timing}
 
 
+def phase_kanana_launches(dev) -> dict:
+    """kanana-2-30b-a3b at full width and depth (random weights, 61.3 GB)
+    through the engine's compiled steps: warm-up at KANANA_PROMPT, then a
+    refill of all four slots and four decode steps, replayed; each step's
+    launches per replay against the model: the prefill kernel once per MLA
+    layer of a refill (its (192, 128) instantiation), the latent decode
+    kernels once per MLA layer of a decode step, the router kernel once
+    per MoE layer of every call, the expert kernel once per MoE layer of a
+    decode step and never in a refill."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.batcher import ServingEngine
+    cfg = get_config(KANANA_ARCH)
+    n_moe = moe_layers(cfg)
+    eng = ServingEngine(cfg, reduced=False, max_batch=4,
+                        max_len=KANANA_PROMPT + 8, fused_decode=True,
+                        device=dev)
+    eng.warmup([KANANA_PROMPT], slots=True)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, KANANA_PROMPT), np.int32)
+    caches = eng.init_caches()
+    nxt, caches, _ = eng.prefill_into_slots(toks, caches, np.ones(4, bool))
+    lens = np.full(4, KANANA_PROMPT, np.int32)
+    for _ in range(4):
+        nxt, caches, _ = eng.decode(nxt[:, None].astype(np.int32), caches,
+                                    lens)
+        lens += 1
+    torch.cuda.synchronize()
+    rep = compile_report([eng], tag="kanana")
+    want = {"decode": {"decode_attention_latent": cfg.num_layers,
+                       "moe_route": n_moe, "moe_experts": n_moe},
+            f"slot_prefill[{KANANA_PROMPT}]": {
+                "prefill_attention": cfg.num_layers, "moe_route": n_moe}}
+    got = rep["launches_per_replay"]
+    if got != want:
+        raise AssertionError(f"kanana launches per replay {got}, expected "
+                             f"{want}")
+    log(f"[kanana] {KANANA_ARCH} full width, 4 slots x {KANANA_PROMPT}: "
+        f"launches per replay {got}; peak "
+        f"{gib(torch.cuda.max_memory_allocated(dev))}")
+    _log_compile("kanana", rep)
+    del eng, caches
+    return {"launches_per_replay": got, "compiled": rep}
+
+
 # --------------------------------------------------------------------------- #
 # Phases
 # --------------------------------------------------------------------------- #
@@ -1664,13 +1745,13 @@ def _tap_decodes(route: bool = True):
     rec = {"steps": [], "margins": []}
     route, decode = L.moe_route, ServingEngine.decode_async
 
-    def tapped_route(xg, w_router, cfg, cap):
+    def tapped_route(xg, w_router, cfg, cap, *bias):
         if xg.shape[1] == 4:            # a decode step's four rows
             top = torch.sort(xg @ w_router.to(xg.dtype), dim=-1,
                              descending=True, stable=True).values
             k = cfg.num_experts_per_tok
             rec["margins"].append((top[..., k - 1] - top[..., k]).amin(0))
-        return route(xg, w_router, cfg, cap)
+        return route(xg, w_router, cfg, cap, *bias)
 
     def tapped_decode(self, tok, caches, lens):
         first = len(rec["margins"])
@@ -3974,6 +4055,9 @@ def run_phases(dev, results, dry_runs, t_start) -> int:
     # The MoE's expert-FFN kernel: against its plain version at the cells'
     # decode shapes, captured and replayed under new routings, then timed.
     results["moe_experts"] = me = phase_moe_experts(dev)
+    free()
+    # kanana-2-30b-a3b's kernels counted per replay of its compiled steps.
+    results["kanana_launches"] = phase_kanana_launches(dev)
     free()
 
     # 4. Timing at the full decode shape.

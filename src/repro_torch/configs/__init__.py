@@ -23,12 +23,18 @@ ARCH_IDS = (
     "qwen2-vl-72b",
 )
 
-_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+#: Configurations of the port's own, beyond the reference's: the JAX
+#: package cannot run them, so they stay out of ``ARCH_IDS``.
+PORT_ARCH_IDS = ("kanana-2-30b-a3b",)
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_")
+            for a in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
 
@@ -39,5 +45,5 @@ def all_configs() -> dict[str, ModelConfig]:
 
 from .shapes import SHAPE_NAMES, input_specs, shape_applicable  # noqa: E402
 
-__all__ = ["ARCH_IDS", "get_config", "all_configs", "SHAPE_NAMES",
-           "input_specs", "shape_applicable"]
+__all__ = ["ARCH_IDS", "PORT_ARCH_IDS", "get_config", "all_configs",
+           "SHAPE_NAMES", "input_specs", "shape_applicable"]

@@ -1425,3 +1425,333 @@ extern "C" int decode_attention_empty_grid(int B, int K, int nsplit, int launche
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// --------------------------------------------------------------------------
+// Absorbed multi-head latent attention (DeepSeek-V2/V3) over a latent cache.
+// --------------------------------------------------------------------------
+// The decode step of `mla_block` (src/repro_torch/models/layers.py), whose
+// plain version is `latent_decode_attention_plain` in
+// src/repro_torch/kernels/decode_attention.py.  Each of H heads has a query
+// of DK = R + Dr values over the latent (its no-rope dims already folded
+// through kv_b_proj's key block, then its roped dims); every position
+// caches one DK-wide row (the normed R-wide latent, then the roped shared
+// key), and a position's value is the leading DV = R values of its row.
+// Every head reads the same rows: the fused decode attention's one-kv-head
+// case, with a 576-wide key and a 512-wide value taken from one row.
+//
+// What bounds it on an H100.  A cached position costs 2*H*(DK + DV) flops
+// (139k at H = 32) against DK*2 bytes (1152) read, about 60 flop/byte, far
+// below the tensor cores' ~295: the bound is the live latent read once over
+// 3.35 TB/s (11 us a layer at kanana-2-30b-a3b's 4 rows of 8256 slots).
+//
+// What the design does about it:
+//   * A. decode_attention_scores_pv_latent, grid (NSPLIT, B, H / HG): one
+//     CTA per (chunk of slots, batch row, group of HG = 16 or 32 heads);
+//     the chunk from shapes only (`latent_split_plan`), about one CTA per
+//     SM.  The group's q rows stay in shared memory; the chunk's live
+//     64-row tiles go through a ring of two shared-memory stages by 16-byte
+//     cp.async (rows past the live ones zero-filled), so the next tile's
+//     load is in flight while one is multiplied.  Per tile: S = q.K^T on
+//     the tensor cores (mma.sync m16n8k16 bf16 -> f32, each warp one m16
+//     row tile by 8*MT columns), divided by the caller's scale; an online
+//     softmax per row (f32 max and sum, p rounded to bf16); O = O*alpha +
+//     p@V with V the tile's leading DV columns, already in shared memory, so
+//     each latent row is read from device memory once for both products
+//     (each warp owns DV/8 columns of every row in registers).  The chunk
+//     writes its unnormalised f32 O and its (max, sum).
+//   * S. decode_attention_stats_latent, grid (B, H): the row's live chunks
+//     merged under their common max in chunk order, divided by the merged
+//     sum and cast once.  Dead chunks (past the row's length) never run.
+// Rows padded in shared memory by 16 bytes (1168 B a latent row, an odd
+// number of 16-byte pieces) so ldmatrix's eight rows hit distinct banks.
+// Numerics: products in f32 from bf16 operands; scores divided (not
+// multiplied by a reciprocal) by `scale_div`; expf; p rounded to bf16
+// before p@V, as the plain version rounds its probabilities.  The online
+// softmax takes p under a running max, so results agree with the plain
+// version to bf16 rounding, not bit for bit.
+//
+// Workspace (one device buffer per call): partials (B, NSPLIT, H, DV) f32
+// | chunk max and sum (B, NSPLIT, H, 2) f32.
+namespace {
+
+constexpr int kLatTile = 64;    // latent rows per tile
+constexpr int kLatStages = 2;   // tiles in the shared-memory ring
+
+struct LatentParams {
+  const __nv_bfloat16* q;       // (B, H, DK)
+  const __nv_bfloat16* latent;  // (B, S, DK)
+  const int* lens;              // (B,) live rows, the new one included
+  __nv_bfloat16* out;           // (B, H, DV)
+  float* part;                  // workspace: (B, NSPLIT, H, DV)
+  float* stat;                  // workspace: (B, NSPLIT, H, 2)
+  float scale_div;              // the scores are divided by it
+  int B, S, H, chunk, nsplit;
+};
+
+// Byte offsets of one CTA's shared memory: q rows, the ring, the tile's f32
+// scores, its bf16 p, and per row the rescale of O, the running max and sum.
+template <int kDK, int kMT>
+struct LatentLayout {
+  static constexpr int kRows = 16 * kMT;
+  static constexpr int kLd = kDK + 8;          // bf16 per q or latent row
+  static constexpr int kSld = kLatTile + 4;    // f32 per score row
+  static constexpr int kPld = kLatTile + 8;    // bf16 per p row
+  static constexpr int q = 0;
+  static constexpr int ring = q + kRows * kLd * 2;
+  static constexpr int s = ring + kLatStages * kLatTile * kLd * 2;
+  static constexpr int pr = s + kRows * kSld * 4;
+  static constexpr int alpha = pr + kRows * kPld * 2;
+  static constexpr int ml = alpha + kRows * 4;
+  static constexpr int bytes = ml + 2 * kRows * 4;
+};
+
+// Rows [base, base + kLatTile) of one batch row's latent into `dst`; rows
+// at or past `hi` are zero-filled (p@V would carry their stale bits).
+template <int kDK, int kLd>
+__device__ __forceinline__ void load_latent_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                 int base, int hi) {
+  constexpr int kPieces = kDK * 2 / 16;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kLatTile * kPieces; i += kThreads) {
+    const int r = i / kPieces, c = i % kPieces;
+    const bool fill = base + r < hi;
+    cp_async16(dst + r * kLd + c * 8,
+               src + static_cast<size_t>(fill ? base + r : base) * kDK + c * 8, fill);
+  }
+}
+
+template <int kDK, int kDV, int kMT>
+__global__ void __launch_bounds__(kThreads) decode_attention_scores_pv_latent(
+    const LatentParams p) {
+  using L = LatentLayout<kDK, kMT>;
+  constexpr int kRows = L::kRows;
+  constexpr int kWarpsPerM = kWarps / kMT;   // warps per m16 row tile (scores)
+  constexpr int kNO = kDV / kWarps / 8;      // n8 tiles of O per warp
+  static_assert(kDK % 16 == 0 && kDV % (kWarps * 8) == 0 && kDV <= kDK, "widths");
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
+  auto* ring = reinterpret_cast<__nv_bfloat16*>(smem + L::ring);
+  float* s_s = reinterpret_cast<float*>(smem + L::s);
+  auto* p_s = reinterpret_cast<__nv_bfloat16*>(smem + L::pr);
+  float* alpha_s = reinterpret_cast<float*>(smem + L::alpha);
+  float* m_s = reinterpret_cast<float*>(smem + L::ml);
+  float* l_s = m_s + kRows;
+
+  const int split = blockIdx.x, b = blockIdx.y, h0 = blockIdx.z * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int live = min(p.lens[b], p.S);
+  const int lo = split * p.chunk, hi = min(lo + p.chunk, live);
+  if (lo >= hi) return;
+  const int ntiles = (hi - lo + kLatTile - 1) / kLatTile;
+  const __nv_bfloat16* src = p.latent + static_cast<size_t>(b) * p.S * kDK;
+
+  // The group's q rows and the first tile.
+  constexpr int kPieces = kDK * 2 / 16;
+  const __nv_bfloat16* qg = p.q + (static_cast<size_t>(b) * p.H + h0) * kDK;
+#pragma unroll 1
+  for (int i = tid; i < kRows * kPieces; i += kThreads) {
+    const int r = i / kPieces, c = i % kPieces;
+    cp_async16(q_s + r * L::kLd + c * 8, qg + r * kDK + c * 8, true);
+  }
+  load_latent_tile<kDK, L::kLd>(ring, src, lo, hi);
+  cp_async_commit();
+  if (tid < kRows) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+
+  const int wm = warp / kWarpsPerM, wn = (warp % kWarpsPerM) * 8 * kMT;
+  const int on = warp * (kDV / kWarps);
+  float acc[kMT][kNO][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < ntiles; ++t) {
+    const int base = lo + t * kLatTile;
+    if (t + 1 < ntiles) {
+      load_latent_tile<kDK, L::kLd>(ring + ((t + 1) % kLatStages) * kLatTile * L::kLd, src,
+                                    base + kLatTile, hi);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ring + (t % kLatStages) * kLatTile * L::kLd;
+
+    // 1. The tile's scores, slots past `hi` at -inf.
+    {
+      float sacc[kMT][4];
+#pragma unroll
+      for (int j = 0; j < kMT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < kDK / 16; ++k) {
+        uint32_t af[4];
+        ldsm_x4(af, q_s + (wm * 16 + (lane & 15)) * L::kLd + k * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < kMT; ++j) {
+          uint32_t bf[2];
+          ldsm_x2(bf, kt + (wn + j * 8 + (lane & 7)) * L::kLd + k * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(sacc[j], af, bf);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = wm * 16 + (lane >> 2) + (e >> 1) * 8;
+          const int c = wn + j * 8 + (lane & 3) * 2 + (e & 1);
+          s_s[r * L::kSld + c] =
+              base + c < hi ? __fdiv_rn(sacc[j][e], p.scale_div) : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. Online softmax, one warp a row: running max and sum, p in bf16.
+#pragma unroll 1
+    for (int r = warp; r < kRows; r += kWarps) {
+      const float s0 = s_s[r * L::kSld + lane], s1 = s_s[r * L::kSld + lane + 32];
+      const float m_old = m_s[r];
+      const float m_new = nan_max(m_old, warp_max(nan_max(s0, s1)));
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      const float alpha = expf(m_old - m_new);
+      const float sum = warp_sum(p0 + p1);
+      p_s[r * L::kPld + lane] = __float2bfloat16_rn(p0);
+      p_s[r * L::kPld + lane + 32] = __float2bfloat16_rn(p1);
+      if (lane == 0) {
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * alpha + sum;
+        alpha_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // 3. O = O * alpha + p@V, V the tile's leading kDV columns.
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+      const float a0 = alpha_s[i * 16 + (lane >> 2)], a1 = alpha_s[i * 16 + (lane >> 2) + 8];
+#pragma unroll
+      for (int j = 0; j < kNO; ++j) {
+        acc[i][j][0] *= a0;
+        acc[i][j][1] *= a0;
+        acc[i][j][2] *= a1;
+        acc[i][j][3] *= a1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLatTile / 16; ++k) {
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        ldsm_x4(af[i], p_s + (i * 16 + (lane & 15)) * L::kPld + k * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < kNO; ++j) {
+        uint32_t bf[2];
+        ldsm_x2_trans(bf, kt + (k * 16 + (lane & 15)) * L::kLd + on + j * 8);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) mma_bf16(acc[i][j], af[i], bf);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. The chunk's unnormalised O and its max and sum.
+  const size_t row0 = (static_cast<size_t>(b) * p.nsplit + split) * p.H + h0;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      const int r = i * 16 + (lane >> 2), c = on + j * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(p.part + (row0 + r) * kDV + c) =
+          make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(p.part + (row0 + r + 8) * kDV + c) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+  if (tid < kRows) {
+    p.stat[(row0 + tid) * 2] = m_s[tid];
+    p.stat[(row0 + tid) * 2 + 1] = l_s[tid];
+  }
+}
+
+template <int kDV>
+__global__ void __launch_bounds__(kThreads) decode_attention_stats_latent(const LatentParams p) {
+  static_assert(kDV % kThreads == 0, "widths");
+  constexpr int kPer = kDV / kThreads;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int live = min(p.lens[b], p.S);
+  const int n = live > 0 ? (live + p.chunk - 1) / p.chunk : 0;
+  const size_t row0 = static_cast<size_t>(b) * p.nsplit * p.H + h;
+  float mx = -INFINITY;
+#pragma unroll 1
+  for (int c = 0; c < n; ++c) mx = nan_max(mx, p.stat[(row0 + static_cast<size_t>(c) * p.H) * 2]);
+  float sum = 0.f, o[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) o[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < n; ++c) {
+    const size_t row = row0 + static_cast<size_t>(c) * p.H;
+    const float w = expf(p.stat[row * 2] - mx);
+    sum += w * p.stat[row * 2 + 1];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) o[i] += w * p.part[row * kDV + threadIdx.x + i * kThreads];
+  }
+  __nv_bfloat16* out = p.out + (static_cast<size_t>(b) * p.H + h) * kDV;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    out[threadIdx.x + i * kThreads] = __float2bfloat16_rn(n ? __fdiv_rn(o[i], sum) : 0.f);
+}
+
+template <int kDK, int kDV, int kMT>
+int launch_latent(const LatentParams& p, cudaStream_t stream) {
+  using L = LatentLayout<kDK, kMT>;
+  const int rc = launch_pass(decode_attention_scores_pv_latent<kDK, kDV, kMT>,
+                             dim3(p.nsplit, p.B, p.H / L::kRows), L::bytes, stream, false, p);
+  if (rc != 0) return rc;
+  return launch_pass(decode_attention_stats_latent<kDV>, dim3(p.B, p.H), 0, stream, false, p);
+}
+
+}  // namespace
+
+// The absorbed MLA step: q (B, H, DK) and the latent cache (B, S, DK) bf16,
+// lens (B,) int32 live rows, out (B, H, DV) bf16; two launches on `stream`.
+// Built for (DK, DV) = (576, 512) and H a multiple of 16; other shapes, or
+// a `work` shorter than (B, NSPLIT, H, DV + 2) f32, return
+// cudaErrorInvalidValue.  `chunk` is latent_split_plan's, a multiple of 64.
+extern "C" int decode_attention_latent_bf16(const void* q, const void* latent, const void* lens,
+                                            void* out, void* work, long long work_bytes, int B,
+                                            int S, int H, int DK, int DV, float scale_div,
+                                            int chunk, void* stream) {
+  if (DK != 576 || DV != 512 || H % 16 != 0 || chunk <= 0 || chunk % kLatTile != 0 || B <= 0 ||
+      S <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LatentParams p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.latent = static_cast<const __nv_bfloat16*>(latent);
+  p.lens = static_cast<const int*>(lens);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.scale_div = scale_div;
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.chunk = chunk;
+  p.nsplit = (S + chunk - 1) / chunk;
+  const size_t rows = static_cast<size_t>(B) * p.nsplit * H;
+  const size_t part = align_up(rows * DV * 4, 256);
+  if (work == nullptr || static_cast<long long>(part + rows * 2 * 4) > work_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.part = static_cast<float*>(work);
+  p.stat = reinterpret_cast<float*>(static_cast<unsigned char*>(work) + part);
+  auto s = static_cast<cudaStream_t>(stream);
+  return H % 32 == 0 ? launch_latent<576, 512, 2>(p, s) : launch_latent<576, 512, 1>(p, s);
+}

@@ -61,6 +61,15 @@
 //     where some row's max moved.  The output is cast once, staged through
 //     the warp's own rows of the q tile and written in 16-byte pieces.
 //
+// Widths: q and k share one head width DK, v and the output have DV.  The
+// instantiations are (64, 64), (128, 128), (256, 256) and (192, 128), the
+// last for multi-head latent attention's decompressed prefill (DeepSeek-V3's
+// layout: 128 + 64 rotary dims of q and k, 128 of v), whose 32 heads each
+// have their own k and v (K = H).  DK sets the q tile, the K ring and the
+// q.K^T k-steps, DV the V ring, the accumulators and the output; the output
+// is staged in the q tile, which DV <= DK lets it fit.  At (192, 128) the
+// CTA takes (128 x 192 + 3 x 64 x 320) x 2 = 168 KiB of shared memory.
+//
 // Numerics: the rounding points of `chunked_attention`.  Scores are f32
 // sums of exact bf16 products; the 1/sqrt(D) scale is one f32 multiply
 // (the double 1/sqrt(D) rounded to f32, as PyTorch rounds a Python scalar);
@@ -91,11 +100,12 @@ constexpr int kBN = 64;                  // keys per tile
 constexpr int kStages = 3;               // K tiles (and V tiles) in the rings
 
 // The CTA: kBM query positions, a warpgroup (128 threads) per 64 of them;
-// D = 256 takes one warpgroup, so that three stages fit in shared memory.
-template <int D> struct Cta {
-  static constexpr int kBM = D == 256 ? 64 : 128;
+// DK = 256 takes one warpgroup, so that three stages fit in shared memory.
+template <int DK, int DV> struct Cta {
+  static_assert(DV <= DK, "the output is staged in the q tile");
+  static constexpr int kBM = DK == 256 ? 64 : 128;
   static constexpr int kThreads = kBM * 2;
-  static constexpr int kSmem = (kBM + 2 * kStages * kBN) * D * 2 + kStages * 8;
+  static constexpr int kSmem = (kBM * DK + kStages * kBN * (DK + DV)) * 2 + kStages * 8;
 };
 // -0.7 * FLT_MAX computed in double and rounded once, as Python computes it.
 constexpr float kNegInf = static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
@@ -293,23 +303,24 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int 
             bar);
 }
 
-// q, k, v through their TMA maps (`make_map`); out (B, L, H, D) contiguous
-// bf16.  Grid (B * H, ceil(L / kBM)), Cta<D>::kThreads threads, Cta<D>::kSmem
-// bytes of shared memory.
-template <int D>
-__global__ void __launch_bounds__(Cta<D>::kThreads, 1)
+// q, k, v through their TMA maps (`make_map`); out (B, L, H, DV) contiguous
+// bf16.  Grid (B * H, ceil(L / kBM)), Cta<DK, DV>::kThreads threads,
+// Cta<DK, DV>::kSmem bytes of shared memory.
+template <int DK, int DV>
+__global__ void __launch_bounds__(Cta<DK, DV>::kThreads, 1)
     prefill_attention_fwd(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int L,
                           int H, int K, int window, float scale) {
-  constexpr int kBM = Cta<D>::kBM;
-  constexpr int kTile = kBN * D;            // elements of a K or V tile
+  constexpr int kBM = Cta<DK, DV>::kBM;
+  constexpr int kTileK = kBN * DK;          // elements of a K tile
+  constexpr int kTileV = kBN * DV;          // elements of a V tile
   constexpr uint32_t kBlock = kBN * 128;    // bytes between column blocks of a K or V tile
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBM * D;                  // [kStages][kBN x D]
-  bf16* sV = sK + kStages * kTile;          // [kStages][kBN x D]
-  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kTile);    // [kStages]
+  bf16* sK = sQ + kBM * DK;                 // [kStages][kBN x DK]
+  bf16* sV = sK + kStages * kTileK;         // [kStages][kBN x DV]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kTileV);   // [kStages]
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int kvh = h / (H / K);
@@ -317,8 +328,8 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
   const int r_last = min(r0 + kBM, L) - 1;
   const int j_lo = window > 0 ? max(0, r0 - window + 1) / kBN : 0;
   const int j_hi = r_last / kBN;
-  const size_t qs = static_cast<size_t>(H) * D;
-  const size_t q_at = static_cast<size_t>(b) * L * qs + static_cast<size_t>(h) * D;
+  const size_t os = static_cast<size_t>(H) * DV;     // the output's row stride
+  const size_t o_at = static_cast<size_t>(b) * L * os + static_cast<size_t>(h) * DV;
 
   // Tile t lies in stage (t - j_lo) % kStages of its ring.  Group g of
   // copies holds V tile j_lo + g - 1 and K tile j_lo + g (group 0: q and
@@ -330,10 +341,10 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
     const int t_v = j_lo + g - 1, t_k = j_lo + g;
     const bool has_v = t_v >= j_lo && t_v <= j_hi, has_k = t_k <= j_hi;
     uint64_t* bar = full + g % kStages;
-    mbar_expect(bar, (has_v + has_k) * kTile * 2 + (g == 0 ? kBM * D * 2 : 0));
-    if (g == 0) tma_tile<D, kBM>(sQ, &tq, h, r0, b, bar);
-    if (has_v) tma_tile<D, kBN>(sV + stage(t_v) * kTile, &tv, kvh, t_v * kBN, b, bar);
-    if (has_k) tma_tile<D, kBN>(sK + stage(t_k) * kTile, &tk, kvh, t_k * kBN, b, bar);
+    mbar_expect(bar, (has_v * kTileV + has_k * kTileK) * 2 + (g == 0 ? kBM * DK * 2 : 0));
+    if (g == 0) tma_tile<DK, kBM>(sQ, &tq, h, r0, b, bar);
+    if (has_v) tma_tile<DV, kBN>(sV + stage(t_v) * kTileV, &tv, kvh, t_v * kBN, b, bar);
+    if (has_k) tma_tile<DK, kBN>(sK + stage(t_k) * kTileK, &tk, kvh, t_k * kBN, b, bar);
   };
   auto group_landed = [&](int g) { mbar_wait(full + g % kStages, (g / kStages) & 1); };
   if (threadIdx.x == 0) {
@@ -349,9 +360,9 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
   const int row[2] = {w0 + g, w0 + g + 8};  // the rows of s[.][0..1] and s[.][2..3]
   const bf16* sq = sQ + wg * 64 * 64;       // the warpgroup's 64 rows of q
 
-  float o[D / 2];                           // o[4n + e]: row row[e / 2], column 8n + 2t + e % 2
+  float o[DV / 2];                          // o[4n + e]: row row[e / 2], column 8n + 2t + e % 2
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float s[32];                              // s[4n + e]: row row[e / 2], key 8n + 2t + e % 2
   uint32_t p[16];                           // p in bf16, as p@V's A fragments
   float m[2] = {kNegInf, kNegInf};
@@ -368,7 +379,7 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
     pin(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DK / 16; ++kk)
       wgmma_qk(s, dq + ((kk / 4) * kBM * 128 + (kk % 4) * 32) / 16,
                dk + ((kk / 4) * kBN * 128 + (kk % 4) * 32) / 16, kk);
     wgmma_commit();
@@ -452,8 +463,8 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
     // tiles j - 2 and j - 1.
     load_group(j - j_lo + kStages - 1);
     group_landed(j - j_lo);                 // K tile j and V tile j - 1
-    issue_qk(sK + stage(j) * kTile);
-    issue_pv(sV + stage(j - 1) * kTile);    // tile j - 1's p@V runs under tile j's softmax
+    issue_qk(sK + stage(j) * kTileK);
+    issue_pv(sV + stage(j - 1) * kTileV);   // tile j - 1's p@V runs under tile j's softmax
     wgmma_wait<1>();
     pin(s);
     softmax(j * kBN);
@@ -462,12 +473,12 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
     pin(p);
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = __fmul_rn(o[i], corr[(i / 2) & 1]);
+      for (int i = 0; i < DV / 2; ++i) o[i] = __fmul_rn(o[i], corr[(i / 2) & 1]);
     }
     to_p();
   }
   group_landed(j_hi - j_lo + 1);            // V tile j_hi
-  issue_pv(sV + stage(j_hi) * kTile);
+  issue_pv(sV + stage(j_hi) * kTileV);
   wgmma_wait<0>();
   pin(o);
 
@@ -485,19 +496,19 @@ __global__ void __launch_bounds__(Cta<D>::kThreads, 1)
   unsigned char* so = reinterpret_cast<unsigned char*>(sQ);
   const int wr = warp * 16;                 // the warp's first row in the q tile
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     *reinterpret_cast<uint32_t*>(so + swz(kBM, wr + g, 8 * n + 2 * t)) =
         pack_bf16(__fdiv_rn(o[4 * n], den[0]), __fdiv_rn(o[4 * n + 1], den[0]));
     *reinterpret_cast<uint32_t*>(so + swz(kBM, wr + g + 8, 8 * n + 2 * t)) =
         pack_bf16(__fdiv_rn(o[4 * n + 2], den[1]), __fdiv_rn(o[4 * n + 3], den[1]));
   }
   __syncwarp();
-  bf16* og = out + q_at;
+  bf16* og = out + o_at;
 #pragma unroll
-  for (int i = lane; i < 16 * D / 8; i += 32) {
+  for (int i = lane; i < 16 * DV / 8; i += 32) {
     const int r = (i / 8) % 16, x = (i / 128) * 64 + (i % 8) * 8;
     if (w0 + r < L) {
-      *reinterpret_cast<uint4*>(og + static_cast<size_t>(w0 + r) * qs + x) =
+      *reinterpret_cast<uint4*>(og + static_cast<size_t>(w0 + r) * os + x) =
           *reinterpret_cast<const uint4*>(so + swz(kBM, wr + r, x));
     }
   }
@@ -542,43 +553,47 @@ bool make_map(CUtensorMap* map, const void* t, int B, int L, int heads, int D, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int L, int H, int K,
            int window, cudaStream_t stream) {
+  using C = Cta<DK, DV>;
   // Set once per process, before the first launch (a captured call is
   // always preceded by an eager one of the same shape).
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_attention_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cta<D>::kSmem);
+      prefill_attention_fwd<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, L, H, D, Cta<D>::kBM) || !make_map(&tk, k, B, L, K, D, kBN) ||
-      !make_map(&tv, v, B, L, K, D, kBN))
+  if (!make_map(&tq, q, B, L, H, DK, C::kBM) || !make_map(&tk, k, B, L, K, DK, kBN) ||
+      !make_map(&tv, v, B, L, K, DV, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const dim3 grid(B * H, (L + Cta<D>::kBM - 1) / Cta<D>::kBM);
-  prefill_attention_fwd<D><<<grid, Cta<D>::kThreads, Cta<D>::kSmem, stream>>>(
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DK)));
+  const dim3 grid(B * H, (L + C::kBM - 1) / C::kBM);
+  prefill_attention_fwd<DK, DV><<<grid, C::kThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), L, H, K, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point: q, out (B, L, H, D) and k, v (B, L, K, D), contiguous
-// bf16 on the device, 16-byte aligned; D one of 64, 128, 256; window 0 (no
+// Plain C entry point: q (B, L, H, DK), k (B, L, K, DK), v (B, L, K, DV)
+// and out (B, L, H, DV), contiguous bf16 on the device, 16-byte aligned;
+// (DK, DV) one of (64, 64), (128, 128), (256, 256), (192, 128); window 0 (no
 // window) or the sliding window.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
 // it does not take.
 extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                      int B, int L, int H, int K, int D, int window,
+                                      int B, int L, int H, int K, int DK, int DV, int window,
                                       void* stream) {
   if (B < 1 || L < 1 || K < 1 || H < K || H % K || window < 0 ||
       static_cast<long long>(B) * H > 0x7fffffffLL || (L + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(q, k, v, out, B, L, H, K, window, s);
-    case 128: return launch<128>(q, k, v, out, B, L, H, K, window, s);
-    case 256: return launch<256>(q, k, v, out, B, L, H, K, window, s);
+  if (DK == 192 && DV == 128) return launch<192, 128>(q, k, v, out, B, L, H, K, window, s);
+  if (DK != DV) return static_cast<int>(cudaErrorInvalidValue);
+  switch (DK) {
+    case 64: return launch<64, 64>(q, k, v, out, B, L, H, K, window, s);
+    case 128: return launch<128, 128>(q, k, v, out, B, L, H, K, window, s);
+    case 256: return launch<256, 256>(q, k, v, out, B, L, H, K, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -52,6 +52,14 @@ how the tests and the chip smoke run hold the form.  Every block whose
 kernels launch adds one to ``_build.LAUNCHES["decode_attention_shard"]``
 (four launches: scores, max, sum, p@V); an empty block launches none and
 counts nothing.
+
+``latent_decode_attention`` is multi-head latent attention's decode step
+(``models.layers.mla_block``, absorbed): every head's query over one cached
+576-wide row a position, whose leading 512 values are the position's
+value.  It has no counterpart in the reference.  The latent kernels of
+``csrc/decode_attention.cu`` take it on the card in bf16 (two launches,
+one count under ``_build.LAUNCHES["decode_attention_latent"]``), and
+``latent_decode_attention_plain`` everywhere else.
 """
 
 from __future__ import annotations
@@ -704,10 +712,107 @@ def decode_attention_over_shards(q, k_new, v_new, k_cache, v_cache, cache_len,
     return _returned(out, k_cache, v_cache, k_scale, v_scale)
 
 
+# --------------------------------------------------------------------------- #
+# Absorbed multi-head latent attention over a latent cache
+# --------------------------------------------------------------------------- #
+#: (DK, DV) the latent kernels are built for: a 512-wide latent and a 64-wide
+#: shared rotary key (kanana-2-30b-a3b, DeepSeek-V2/V3).
+LATENT_WIDTHS = ((576, 512),)
+_LATENT_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
+                    + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_void_p))
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched) with f32 sums of a's and b's own values: on the
+    card a bf16 product summed in f32 without an f32 copy of either."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def latent_decode_attention_plain(q: torch.Tensor, latent: torch.Tensor,
+                                  lens: torch.Tensor, dv: int,
+                                  scale: float) -> torch.Tensor:
+    """One decode step of absorbed latent attention in plain PyTorch.
+
+    q (B, H, DK) holds each head's query over a cached row, in the cache's
+    dtype; latent (B, S, DK) the cached rows, whose leading ``dv`` values are
+    a position's value; ``lens`` (B,) the live rows, the new one included.
+    Scores ``q.row / scale`` and the softmax in f32, the probabilities
+    rounded to the cache's dtype, p@V summed in f32 and returned (B, H, dv)
+    in the cache's dtype."""
+    sc = bmm_f32(q, latent.transpose(1, 2)) / scale
+    mask = live_slots(lens, latent.shape[1])
+    prob = torch.softmax(torch.where(mask[:, None], sc, NEG_INF), -1)
+    return bmm_f32(prob.to(latent.dtype), latent[..., :dv]).to(latent.dtype)
+
+
+def latent_split_plan(batch: int, groups: int, slots: int,
+                      sms: int) -> tuple[int, int]:
+    """``(nsplit, chunk)`` of the latent kernels: about one CTA per SM over
+    the ``batch * groups`` (row, head group) pairs, in chunks of whole
+    ``_TILE``-row tiles.  From shapes alone."""
+    if min(batch, groups, slots, sms) < 1:
+        raise ValueError(f"no split of batch={batch}, groups={groups}, "
+                         f"slots={slots} on {sms} SMs")
+    tiles = -(-slots // _TILE)
+    want = max(1, sms // (batch * groups))
+    chunk = -(-tiles // min(want, tiles)) * _TILE
+    return -(-slots // chunk), chunk
+
+
+def latent_kernel_takes(q: torch.Tensor, latent: torch.Tensor,
+                        lens: torch.Tensor, dv: int) -> bool:
+    """Whether the latent kernels take the call: CUDA, bf16, contiguous and
+    16-byte aligned, widths in ``LATENT_WIDTHS``, heads a multiple of 16."""
+    if not (q.is_cuda and latent.device == q.device == lens.device):
+        return False
+    if q.dtype != torch.bfloat16 or latent.dtype != torch.bfloat16:
+        return False
+    if q.ndim != 3 or latent.ndim != 3 or lens.dtype != torch.int32:
+        return False
+    b, h, dk = q.shape
+    if (latent.shape[0] != b or latent.shape[2] != dk
+            or tuple(lens.shape) != (b,) or (dk, dv) not in LATENT_WIDTHS
+            or h % 16):
+        return False
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, latent)) and lens.is_contiguous()
+
+
+def latent_decode_attention(q: torch.Tensor, latent: torch.Tensor,
+                            lens: torch.Tensor, dv: int,
+                            scale: float) -> torch.Tensor:
+    """``latent_decode_attention_plain``'s function: the kernels of
+    ``csrc/decode_attention.cu`` where ``latent_kernel_takes`` the call
+    (two launches, one count under ``decode_attention_latent``), the plain
+    version otherwise.  The kernels take p under a running max, so they
+    agree with the plain version to the cache dtype's rounding."""
+    if not latent_kernel_takes(q, latent, lens, dv):
+        return latent_decode_attention_plain(q, latent, lens, dv, scale)
+    b, h, dk = q.shape
+    slots = latent.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit, chunk = latent_split_plan(b, h // (32 if h % 32 == 0 else 16),
+                                      slots, sms)
+    rows = b * nsplit * h
+    part = -(-rows * dv * 4 // 256) * 256
+    nbytes = part + rows * 2 * 4
+    out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    _build.launch("decode_attention", "decode_attention_latent_bf16",
+                  _LATENT_ARGTYPES, q.device, _ptr(q), _ptr(latent),
+                  _ptr(lens), _ptr(out), _ptr(work), nbytes, b, slots, h, dk,
+                  dv, float(scale), chunk, count="decode_attention_latent")
+    return out
+
+
 __all__ = ["fused_decode_attention", "decode_attention_plain",
            "decode_attention_shard", "decode_attention_shard_plain",
            "decode_attention_over_shards", "shard_softmax_pv", "slot_blocks",
            "live_slots", "pick_chunk", "quantize_kv", "split_plan",
            "tensor_cores", "cuda_core_build", "fold_stats", "smem_bytes",
-           "workspace_bytes",
-           "NEG_INF"]
+           "workspace_bytes", "latent_decode_attention",
+           "latent_decode_attention_plain", "latent_kernel_takes",
+           "latent_split_plan", "LATENT_WIDTHS", "bmm_f32", "NEG_INF"]

@@ -1,9 +1,11 @@
 """Causal GQA attention over a prompt: the prefill's attention, one call.
 
-q (B, L, H, D) attends over k, v (B, L, K, D), causally and, for local
-layers, within a sliding ``window``; q head h reads kv head ``h // (H/K)``
-(K-major), without repeating the kv heads.  Two implementations of the
-same function live here:
+q (B, L, H, D) attends over k (B, L, K, D) and v (B, L, K, Dv), causally
+and, for local layers, within a sliding ``window``; q head h reads kv head
+``h // (H/K)`` (K-major), without repeating the kv heads.  Dv is D but for
+multi-head latent attention's decompressed prefill, whose q and k are 192
+wide (128 + 64 rotary) and v 128.  Two implementations of the same
+function live here:
 
   * the CUDA C++ kernel ``csrc/prefill_attention.cu`` for ``sm_90a``, one
     launch per call on the caller's stream: one CTA per (batch row, q
@@ -27,7 +29,7 @@ max's tile width differ.
 
 ``prefill_attention`` takes the plain version for tensors on the CPU;
 CUDA tensors go to the kernel or raise.  ``takes`` says whether the kernel
-takes a call (a CUDA tensor, bf16, a built head dim), which is how
+takes a call (a CUDA tensor, bf16, built widths), which is how
 ``models.layers.attention_block`` routes a one-device prefill.  Every
 launch adds one to ``_build.LAUNCHES["prefill_attention"]``, so a prefill
 counts one per attention layer.
@@ -44,9 +46,12 @@ import torch.nn.functional as F
 from . import _build
 from .decode_attention import NEG_INF
 
-#: What the kernel is built for: bf16 activations and these head dims.
+#: What the kernel is built for: bf16 activations and these head dims,
+#: q, k and v of one width ...
 HEAD_DIMS = (64, 128, 256)
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+#: ... or these (q and k width, v width) pairs.
+WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
 def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -55,11 +60,12 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
                             kv_chunk: int = 1024) -> torch.Tensor:
     """Causal GQA attention with online softmax over KV chunks.
 
-    q (B, Sq, H, D), k/v (B, Skv, K, D).  Grouped K-major GQA: q head h
-    reads kv head ``h // (H/K)`` without materialising repeated KV.
+    q (B, Sq, H, D), k (B, Skv, K, D), v (B, Skv, K, Dv); returns
+    (B, Sq, H, Dv).  Grouped K-major GQA: q head h reads kv head
+    ``h // (H/K)`` without materialising repeated KV.
     """
     b, sq, h, d = q.shape
-    skv, kh = k.shape[1], k.shape[2]
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kh
     qg = q.reshape(b, sq, kh, g, d).float()
     scale = 1.0 / math.sqrt(d)
@@ -73,7 +79,7 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
 
-    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, h, dv), dtype=torch.float32, device=dev)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
     lse = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
     for j in range(n_chunks):
@@ -94,7 +100,7 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
         pv = torch.einsum(
             "bkgqs,bskd->bqkgd",
             p.reshape(b, kh, g, sq, kv_chunk).to(vj.dtype).float(), vj.float())
-        acc = acc * corr.transpose(1, 2)[..., None] + pv.reshape(b, sq, h, d)
+        acc = acc * corr.transpose(1, 2)[..., None] + pv.reshape(b, sq, h, dv)
         m = m_new
     out = acc / torch.clamp_min(lse, 1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype)
@@ -105,10 +111,11 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the kernel takes this call: CUDA tensors in bf16 with a built
-    head dim.  From dtypes and shapes only."""
+    """Whether the kernel takes this call: CUDA tensors in bf16 with built
+    widths.  From dtypes and shapes only."""
     return (_on_card(q) and q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and q.shape[-1] in HEAD_DIMS)
+            and k.shape[-1] == q.shape[-1]
+            and (q.shape[-1], v.shape[-1]) in WIDTHS)
 
 
 def _check(q, k, v, window: int) -> None:
@@ -120,17 +127,19 @@ def _check(q, k, v, window: int) -> None:
             raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"no prefill-attention kernel for {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("q must be (B, L, H, D) and k, v (B, L, K, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:-1] != v.shape[:-1]:
+        raise ValueError("q must be (B, L, H, D), k (B, L, K, D) and v "
+                         f"(B, L, K, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, length, h, d = q.shape
-    kh = k.shape[2]
+    kh, dv = k.shape[2], v.shape[-1]
     if tuple(k.shape) != (b, length, kh, d):
         raise ValueError(f"k must be {(b, length, kh, d)}, got "
                          f"{tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if (d, dv) not in WIDTHS:
+        raise ValueError(f"widths (q/k {d}, v {dv}) not among the kernel's "
+                         f"{WIDTHS}")
     if kh < 1 or h % kh:
         raise ValueError(f"kv heads ({kh}) must divide num_heads ({h})")
     if min(b, length) < 1:
@@ -145,20 +154,22 @@ def _launch(q, k, v, window: int) -> torch.Tensor:
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     b, length, h, d = q.shape
-    out = torch.empty_like(q)
+    dv = v.shape[-1]
+    out = q.new_empty((b, length, h, dv))
     _build.launch("prefill_attention", "prefill_attention_bf16", _ARGTYPES,
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, length, h, k.shape[2], d, int(window),
-                  count="prefill_attention")
+                  out.data_ptr(), b, length, h, k.shape[2], d, dv,
+                  int(window), count="prefill_attention")
     return out
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: int = 0) -> torch.Tensor:
     """Causal GQA attention of a prompt from position 0; returns the
-    (B, L, H, D) output in q's dtype.
+    (B, L, H, Dv) output in q's dtype.
 
-    q (B, L, H, D) and k, v (B, L, K, D), already roped; ``window`` 0 (none)
+    q (B, L, H, D), k (B, L, K, D) and v (B, L, K, Dv), already roped
+    (``WIDTHS`` lists the (D, Dv) the kernel takes); ``window`` 0 (none)
     or the sliding window of local layers.  CPU tensors run the plain
     version; CUDA tensors launch the kernel (one count) or raise on what it
     does not take.
@@ -171,4 +182,4 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["prefill_attention", "prefill_attention_plain", "takes",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "WIDTHS"]

@@ -5,8 +5,12 @@ A copy of ``repro/models/config.py``: the same frozen ``ModelConfig``,
 compares equal on every field the reference has.  The port adds what
 granite-4.0-h's hybrid stack needs (a Mamba2 mixer followed by an MoE
 FFN, NoPE attention, a shared expert, the conv bias and four scalar
-multipliers); each new field defaults to a neutral value that leaves the
-reference's configurations, and the work their steps do, unchanged.
+multipliers) and what DeepSeek-V3's layers need (multi-head latent
+attention over a dense or an MoE FFN, a dense FFN width beside the expert
+width, a sigmoid router with a score-correction bias and a scaling of its
+weights, interleaved rotary pairs); each new field defaults to a neutral
+value that leaves the reference's configurations, and the work their steps
+do, unchanged.
 
 The layer stack is described by ``pattern``: one repeating *group* of block
 kinds. ``num_layers = len(pattern) * full_groups + len(tail)`` — parameters
@@ -25,11 +29,16 @@ BLOCK_KINDS = (
     "mamba",         # Mamba2 (SSD) block
     "shared_attn",   # hybrid: invoke the single shared transformer block
     "mamba_moe",     # Mamba2 (SSD) mixer + MoE FFN (granite-4.0-h)
+    "mla",           # multi-head latent attention + dense FFN (DeepSeek-V3)
+    "mla_moe",       # multi-head latent attention + MoE FFN
 )
 #: The block kinds whose mixer is a Mamba2 SSD (an SSM and a conv cache).
 MAMBA_KINDS = ("mamba", "mamba_moe")
+#: The block kinds whose mixer is multi-head latent attention (one latent
+#: per position in the cache, shared by every head).
+MLA_KINDS = ("mla", "mla_moe")
 #: The block kinds whose FFN is the MoE.
-MOE_KINDS = ("attn_moe", "mamba_moe")
+MOE_KINDS = ("attn_moe", "mamba_moe", "mla_moe")
 
 
 @dataclass(frozen=True)
@@ -60,6 +69,27 @@ class ModelConfig:
     moe_groups: int = 1            # routing groups (>= #shards at scale)
     capacity_factor: float = 1.25
     shared_expert_ff: int = 0      # a shared gated expert of this width
+    # The router: "softmax" over the top-k logits, or DeepSeek-V3's
+    # "sigmoid": experts picked by sigmoid(logit) plus a per-expert
+    # score-correction bias (each MoE block's ``router_bias`` leaf),
+    # weighted by their sigmoid scores normalised over the k, times
+    # ``routed_scaling``.
+    router_scoring: str = "softmax"
+    routed_scaling: float = 1.0
+    # The dense FFN's width where it differs from ``d_ff`` (the experts'):
+    # DeepSeek-V3's leading dense layers.  0 => d_ff.
+    dense_d_ff: int = 0
+    # Multi-head latent attention (DeepSeek-V2/V3, ``mla`` kinds): q straight
+    # from the hidden state, ``qk_nope_head_dim + qk_rope_head_dim`` wide per
+    # head; one ``kv_lora_rank``-wide latent and one shared rotary key of
+    # ``qk_rope_head_dim`` cached per position; values ``v_head_dim`` wide.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # Rotary pairs (2i, 2i + 1) instead of (i, i + W): DeepSeek-V3's
+    # ``rope_interleave``.
+    rope_interleave: bool = False
     # SSM (Mamba2 / SSD).
     ssm_state: int = 0
     ssm_heads: int = 0
@@ -96,10 +126,23 @@ class ModelConfig:
         for k in self.pattern:
             if k not in BLOCK_KINDS:
                 raise ValueError(f"unknown block kind {k!r}")
+        if self.router_scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown router scoring {self.router_scoring!r}")
+        if any(k in MLA_KINDS for k in self.pattern) and not (
+                self.kv_lora_rank and self.qk_rope_head_dim
+                and self.qk_nope_head_dim and self.v_head_dim):
+            raise ValueError("mla blocks need kv_lora_rank, qk_nope_head_dim,"
+                             " qk_rope_head_dim and v_head_dim")
 
     @property
     def qk_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def mla_latent_dim(self) -> int:
+        """The width of one cached MLA position: the latent and the shared
+        rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
 
     @property
     def vocab_padded(self) -> int:
@@ -160,7 +203,18 @@ class ModelConfig:
         moe_p = (d * self.num_experts
                  + self.num_experts * d * moe_f * (3 if self.gated_mlp else 2)
                  + 3 * d * self.shared_expert_ff)      # the shared expert
+        if self.router_scoring == "sigmoid":
+            moe_p += self.num_experts              # the router's bias
         per_kind["attn_moe"] = attn_p + moe_p + 2 * d
+        h, r = self.num_heads, self.kv_lora_rank
+        mla_p = (d * h * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                 + d * self.mla_latent_dim + r     # kv_a and its norm
+                 + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                 + h * self.v_head_dim * d)
+        dense_f = self.dense_d_ff or f
+        per_kind["mla"] = mla_p + d * dense_f * (3 if self.gated_mlp else 2) \
+            + 2 * d
+        per_kind["mla_moe"] = mla_p + moe_p + 2 * d
         di, ns, nh = self.d_inner, self.ssm_state, self.ssm_num_heads
         g_bc = 2 * ns  # single B/C group
         per_kind["mamba"] = (d * (2 * di + g_bc + nh)  # w_z/w_x/w_bc/w_dt
@@ -215,6 +269,11 @@ def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:
         ssm_head_dim=16,
         ssm_chunk=8,
         shared_expert_ff=128 if cfg.shared_expert_ff else 0,
+        dense_d_ff=192 if cfg.dense_d_ff else 0,
+        kv_lora_rank=32 if cfg.kv_lora_rank else 0,
+        qk_nope_head_dim=16 if cfg.qk_nope_head_dim else 0,
+        qk_rope_head_dim=8 if cfg.qk_rope_head_dim else 0,
+        v_head_dim=16 if cfg.v_head_dim else 0,
         sliding_window=8 if cfg.sliding_window else 0,
         mrope_sections=(4, 2, 2) if cfg.rope_variant == "mrope" else (),
         max_seq_len=256,

@@ -1,7 +1,9 @@
 """Neural-net layers of every block kind, in PyTorch.
 
 The port of ``repro/models/layers.py``: attention, the dense MLP, the
-top-k MoE with capacity and the Mamba2 (SSD) block.  Parameters are
+top-k MoE with capacity and the Mamba2 (SSD) block; and, beyond the
+reference, multi-head latent attention (``mla_block``) and DeepSeek-V3's
+sigmoid router.  Parameters are
 explicit dicts of tensors with the reference's layouts: activations are
 ``(B, S, d)``, heads ``(B, S, H, D)``, KV caches ``(B, slots, K, D)`` and
 SSM caches ``{"ssm": (B, H, P, N) f32, "conv": (B, W-1, C)}``.
@@ -43,8 +45,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import moe_experts
 from repro_torch.kernels.decode_attention import (NEG_INF,
+                                                  bmm_f32 as _bmm_f32,
                                                   decode_attention_shard,
                                                   fused_decode_attention,
+                                                  latent_decode_attention,
                                                   live_slots, quantize_kv,
                                                   shard_softmax_pv,
                                                   write_slots)
@@ -59,8 +63,9 @@ from .config import ModelConfig
 __all__ = ["ShardCtx", "NO_SHARD", "rms_norm", "gated_rms_norm",
            "rope_cos_sin", "apply_rope", "NEG_INF", "repeat_kv",
            "chunked_attention", "decode_attention", "quantize_kv",
-           "dequantize_kv", "attention_block", "mlp_block", "moe_capacity",
-           "moe_route", "moe_block", "ssd_chunked", "mamba_block"]
+           "dequantize_kv", "attention_block", "mla_block", "mlp_block",
+           "moe_capacity", "moe_route", "moe_block", "ssd_chunked",
+           "mamba_block"]
 
 
 # --------------------------------------------------------------------------- #
@@ -304,8 +309,16 @@ def rope_cos_sin(positions: torch.Tensor, d: int, cfg: ModelConfig,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) or (B, S, 3) for M-RoPE."""
+    """x: (B, S, H, D); positions: (B, S) or (B, S, 3) for M-RoPE.
+
+    With ``cfg.rope_interleave`` the rotated pairs are (2i, 2i + 1): x's
+    even dims are gathered before its odd ones and rotated as halves, and
+    the result stays in that order (DeepSeek-V3's
+    ``apply_rotary_pos_emb_interleave``).  A q and a k rotated alike give
+    the dot products of rotating each pair in place."""
     d = x.shape[-1]
+    if cfg.rope_interleave:
+        x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
     cos, sin = rope_cos_sin(positions, d, cfg)
     rot = 2 * cos.shape[-1]
     if rot < d:
@@ -570,6 +583,92 @@ def _decode_on_slot_blocks(ctx: ShardCtx, cache: dict, q, k, v, idx,
 
 
 # --------------------------------------------------------------------------- #
+# Multi-head latent attention (DeepSeek-V2/V3)
+# --------------------------------------------------------------------------- #
+def mla_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+              positions: torch.Tensor, cache: dict | None = None,
+              ctx: ShardCtx = NO_SHARD,
+              ) -> tuple[torch.Tensor, dict | None]:
+    """Multi-head latent attention; returns ``(y, cache)``.
+
+    ``p``: ``wq`` (d, H*(Dn+Dr)), q straight from the hidden state;
+    ``w_kv_a`` (d, R+Dr), the latent and the shared rotary key;
+    ``kv_norm`` (R,), the latent's RMSNorm; ``w_kv_b`` (R, H*(Dn+Dv)), each
+    head's key (its Dn dims without rotary) and value from the latent;
+    ``wo`` (H*Dv, d).  ``cache`` is ``{"latent": (B, slots, R+Dr), "len"}``:
+    each position's normed latent and roped shared key, written in place,
+    and nothing per head.
+
+    A prefill (S > 1, or no cache) decompresses the latent into every
+    head's keys and values and attends with softmax scale 1/sqrt(Dn+Dr):
+    the prefill-attention kernel where it takes the call (one device, CUDA,
+    bf16, widths (192, 128)), ``chunked_attention`` otherwise.  A decode
+    step absorbs ``w_kv_b`` instead: q's Dn dims times each head's key
+    block give a query over the latent, the scores are taken over the
+    cached latents and shared keys, and the weighted latent times each
+    head's value block is the head's output.  The two compute one function
+    in another order of sums; the decode reads only the latent cache.  The
+    decode's products take operands in the cache's dtype (the query over
+    the latent, p and the weighted latent rounded to it) and sum in f32;
+    the scores and the softmax are f32.  Its attention over the latent is
+    ``latent_decode_attention``: the latent kernels of
+    ``decode_attention.cu`` where they take the call (the card, bf16,
+    widths (576, 512)), the plain version otherwise.
+    """
+    if ctx.active:
+        raise NotImplementedError("multi-head latent attention runs on one "
+                                  "device (no mesh)")
+    b, s, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    kv = x @ p["w_kv_a"]                                     # (B, S, R+Dr)
+    c_kv = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = kv[..., r:][:, :, None]                           # (B, S, 1, Dr)
+    if cfg.rope_variant != "none":
+        q_pe = apply_rope(q_pe, positions, cfg)
+        k_pe = apply_rope(k_pe, positions, cfg)
+    new_cache = None
+    if cache is None or s > 1:
+        if cache is not None:
+            cache["latent"][:, :s] = torch.cat(
+                [c_kv, k_pe[:, :, 0]], -1).to(cache["latent"].dtype)
+            new_cache = dict(cache, len=cache["len"] + s)
+        kvb = (c_kv @ p["w_kv_b"]).reshape(b, s, h, dn + dv)
+        k = torch.cat([kvb[..., :dn], k_pe.expand(b, s, h, dr)], -1)
+        v = kvb[..., dn:]
+        del kvb
+        qq = torch.cat([q_nope, q_pe], -1)
+        out = (prefill_attention(qq, k, v) if cache is not None
+               and _prefill_kernel(qq, k, v, ctx)
+               else chunked_attention(qq, k, v))
+        del qq, k, v
+    else:
+        idx = torch.as_tensor(cache["len"], dtype=torch.int32,
+                              device=x.device)
+        if idx.ndim == 0:
+            idx = idx.expand(b)
+        latent = cache["latent"]
+        write_slots(latent, torch.arange(b, device=x.device), idx.long(),
+                    torch.cat([c_kv[:, 0], k_pe[:, 0, 0]], -1)
+                    .to(latent.dtype))
+        # Each head's query over the latent: q's Dn dims times its key block.
+        w_kv_b = p["w_kv_b"].reshape(r, h, dn + dv)
+        q_lat = _bmm_f32(q_nope[:, 0].transpose(0, 1),
+                         w_kv_b[..., :dn].permute(1, 2, 0)).transpose(0, 1)
+        qc = torch.cat([q_lat, q_pe[:, 0].float()], -1).to(latent.dtype)
+        o_lat = latent_decode_attention(qc, latent, idx + 1, r,
+                                        math.sqrt(dn + dr))
+        # ... and the weighted latent times each head's value block.
+        out = _bmm_f32(o_lat.transpose(0, 1),
+                       w_kv_b[..., dn:].permute(1, 0, 2)).transpose(0, 1)
+        out = out[:, None].to(x.dtype)                       # (B, 1, H, Dv)
+        new_cache = dict(cache, len=idx + 1)
+    return out.reshape(b, s, h * dv) @ p["wo"], new_cache
+
+
+# --------------------------------------------------------------------------- #
 # Dense FFN
 # --------------------------------------------------------------------------- #
 _ACTS = moe_experts.ACTS
@@ -597,11 +696,18 @@ def moe_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
 
 
 def moe_route(xg: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
-              cap: int) -> tuple[torch.Tensor, ...]:
+              cap: int, bias: torch.Tensor | None = None,
+              ) -> tuple[torch.Tensor, ...]:
     """Route each group's tokens: xg (G, Tg, d) -> (top_ids, gates, dst, keep).
 
     ``top_ids`` (G, Tg, K) are the chosen experts, ``gates`` (G, Tg, K) f32
-    their softmax weights.  ``dst`` and ``keep`` (G, Tg*K) follow the
+    their weights: a softmax over the top-k logits, or, where
+    ``cfg.router_scoring`` is "sigmoid" (DeepSeek-V3), the k largest of
+    sigmoid(logit) + ``bias`` (the score-correction bias, which picks but
+    does not weigh), weighted by their sigmoid scores over the scores' sum
+    (plus 1e-20) times ``cfg.routed_scaling``; the sigmoid router's logits
+    are f32 products, as DeepSeek-V3 computes them.  ``dst`` and ``keep``
+    (G, Tg*K) follow the
     token-major (token, k) order: ``dst`` is the copy's row in the
     (E*cap + 1)-row dispatch buffer, whose last row takes the copies that
     overflow their expert's capacity (``keep`` False); both come from
@@ -609,14 +715,22 @@ def moe_route(xg: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
     """
     g, tg, _ = xg.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    # The router stays in the activation dtype, as in the reference.
-    logits = xg @ w_router.to(xg.dtype)                       # (G, Tg, E)
-    # lax.top_k puts equal logits in index order, and so does a stable
-    # descending sort; torch.topk promises no order among ties.
-    top_logits, top_ids = torch.sort(logits, dim=-1, descending=True,
-                                     stable=True)
-    top_logits, top_ids = top_logits[..., :k], top_ids[..., :k]
-    gates = torch.softmax(top_logits.float(), dim=-1)
+    if cfg.router_scoring == "sigmoid":
+        scores = torch.sigmoid(xg.float() @ w_router.float())
+        choice = scores if bias is None else scores + bias.float()
+        top_ids = torch.sort(choice, dim=-1, descending=True,
+                             stable=True)[1][..., :k]
+        w = scores.gather(-1, top_ids)
+        gates = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+    else:
+        # The router stays in the activation dtype, as in the reference.
+        logits = xg @ w_router.to(xg.dtype)                   # (G, Tg, E)
+        # lax.top_k puts equal logits in index order, and so does a stable
+        # descending sort; torch.topk promises no order among ties.
+        top_logits, top_ids = torch.sort(logits, dim=-1, descending=True,
+                                         stable=True)
+        top_logits, top_ids = top_logits[..., :k], top_ids[..., :k]
+        gates = torch.softmax(top_logits.float(), dim=-1)
     dst, keep = expert_slots(top_ids.reshape(g, tg * k), e, cap)
     return top_ids, gates, dst, keep
 
@@ -691,7 +805,8 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         # order in which index_add's atomic adds land on the card; the
         # overflow row, which may take many, is dropped.
         g = xg.shape[0]
-        _, gates, dst, keep = moe_route(xg, w_router, cfg, cap)
+        _, gates, dst, keep = moe_route(xg, w_router, cfg, cap,
+                                        p.get("router_bias"))
         rows = e * cap + 1
         base = torch.arange(g, device=xg.device)[:, None]
         xrep = xg[:, :, None].expand(g, tg, k, d)             # (G, Tg, K, d)

@@ -8,7 +8,9 @@ reference pytree converts leaf by leaf (``models.convert``).  Where the
 reference scans over the stacked groups, the port loops over them in
 Python.  Hybrid archs (Zamba2) invoke one ``params["shared"]`` attention
 block from each ``shared_attn`` position; its weights are stored once,
-and each invocation has its own KV cache.
+and each invocation has its own KV cache.  Multi-head latent attention
+blocks (``mla``, ``mla_moe``) cache one latent per position, shared by
+every head.
 
 Entry points (each takes ``ctx=NO_SHARD``, a ``ShardCtx``; an active one
 runs the same code on DTensors placed over a ``DeviceMesh``):
@@ -19,6 +21,7 @@ runs the same code on DTensors placed over a ``DeviceMesh``):
   prefill(params, cfg, caches=, tokens=)        -> (logits, caches)
   decode_step(params, cfg, tokens, caches, cache_len, fused=)
                                                 -> (logits (B,1,V), caches)
+  cache_bytes(cfg, lens, new)                   -> cache bytes a call moves
 
 Caches are written in place; the functions also return them, as the
 reference returns its donated caches.  ``forward`` without caches is
@@ -37,9 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.device import resolve_device
 
-from .config import MAMBA_KINDS, ModelConfig
+from .config import MAMBA_KINDS, MLA_KINDS, ModelConfig
 from .layers import (NO_SHARD, ShardCtx, attention_block, mamba_block,
-                     mlp_block, moe_block, rms_norm)
+                     mla_block, mlp_block, moe_block, rms_norm)
 
 Params = dict[str, Any]
 
@@ -100,8 +103,9 @@ def _init_attn(ini: _Init, cfg: ModelConfig) -> dict:
             "wo": ini.normal((cfg.num_heads * hd, d), so)}
 
 
-def _init_mlp(ini: _Init, cfg: ModelConfig) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def _init_mlp(ini: _Init, cfg: ModelConfig, f: int | None = None) -> dict:
+    """A dense FFN of width ``f`` (``cfg.d_ff`` where None)."""
+    d, f = cfg.d_model, f or cfg.d_ff
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     p = {"w_in": ini.normal((d, f), s_in), "w_out": ini.normal((f, d), s_out)}
     if cfg.gated_mlp:
@@ -116,10 +120,25 @@ def _init_moe(ini: _Init, cfg: ModelConfig) -> dict:
          "w_gate": ini.normal((e, d, f), s_in),
          "w_in": ini.normal((e, d, f), s_in),
          "w_out": ini.normal((e, f, d), s_out)}
+    if cfg.router_scoring == "sigmoid":
+        p["router_bias"] = ini.zeros((e,))
     if cfg.shared_expert_ff:
         p["shared"] = _init_mlp(ini, dataclasses.replace(
             cfg, d_ff=cfg.shared_expert_ff, gated_mlp=True))
     return p
+
+
+def _init_mla(ini: _Init, cfg: ModelConfig) -> dict:
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dkv = cfg.qk_nope_head_dim + cfg.v_head_dim
+    s = 1.0 / math.sqrt(d)
+    return {"wq": ini.normal((d, h * dq), s),
+            "w_kv_a": ini.normal((d, cfg.mla_latent_dim), s),
+            "kv_norm": ini.zeros((r,)),
+            "w_kv_b": ini.normal((r, h * dkv), 1.0 / math.sqrt(r)),
+            "wo": ini.normal((h * cfg.v_head_dim, d),
+                             1.0 / math.sqrt(h * cfg.v_head_dim))}
 
 
 def _init_mamba(ini: _Init, cfg: ModelConfig) -> dict:
@@ -150,6 +169,14 @@ def _init_block(ini: _Init, kind: str, cfg: ModelConfig) -> dict:
                 "norm2": ini.zeros((d,)), "moe": _init_moe(ini, cfg)}
     if kind == "shared_attn":
         return {}   # the weights live once, in params["shared"]
+    if kind in MLA_KINDS:
+        p = {"norm1": ini.zeros((d,)), "norm2": ini.zeros((d,)),
+             "mla": _init_mla(ini, cfg)}
+        if kind == "mla_moe":
+            p["moe"] = _init_moe(ini, cfg)
+        else:
+            p["mlp"] = _init_mlp(ini, cfg, cfg.dense_d_ff)
+        return p
     p = {"norm1": ini.zeros((d,)), "norm2": ini.zeros((d,)),
          "attn": _init_attn(ini, cfg)}
     if kind == "attn_moe":
@@ -200,6 +227,10 @@ def _apply_block(h, bp, kind, cfg: ModelConfig, *, positions, cache=None,
     if kind in MAMBA_KINDS:
         m_out, new_cache = mamba_block(mixer_in, bp["mamba"], cfg,
                                        cache=cache, ctx=ctx)
+    elif kind in MLA_KINDS:
+        m_out, new_cache = mla_block(mixer_in, bp["mla"], cfg,
+                                     positions=positions, cache=cache,
+                                     ctx=ctx)
     else:
         m_out, new_cache = attention_block(mixer_in, bp["attn"], cfg,
                                            positions=positions, window=window,
@@ -444,6 +475,13 @@ def _cache_entry(kind: str, cfg: ModelConfig, lead: tuple[int, ...],
                 "conv": torch.zeros((*lead, batch, cfg.conv_width - 1,
                                      cfg.d_inner + 2 * cfg.ssm_state),
                                     dtype=dt, device=device)}
+    if kind in MLA_KINDS:
+        # One latent and one shared rotary key per position, no head.
+        if cfg.kv_quant:
+            raise ValueError("an MLA latent cache has no int8 form")
+        return {"latent": torch.zeros((*lead, batch, max_len,
+                                       cfg.mla_latent_dim), dtype=dt,
+                                      device=device)}
     length = max_len
     if kind == "local" and cfg.sliding_window:
         length = min(max_len, cfg.sliding_window)  # ring buffer
@@ -498,6 +536,40 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len, *,
                                caches=caches, cache_len=lens, fused=fused,
                                ctx=ctx)
         return logits_from_hidden(params, h, cfg, ctx), caches
+
+
+def cache_bytes(cfg: ModelConfig, lens, new: int) -> int:
+    """The bytes of the decode caches one call reads and writes, over every
+    layer: each row (one per entry of ``lens``) reads its cache below its
+    length ``lens[i]`` (a local layer: its window of it) and writes ``new``
+    positions; an attention layer's (a ``shared_attn`` position's too)
+    position is its K and V (int8 and
+    their f32 scales where ``kv_quant``), an MLA layer's its latent and
+    shared rotary key; a Mamba layer writes its row's SSM state (f32) and
+    conv window and, in a decode step, reads them first.  A decode step is
+    ``new`` 1; a prefill from nothing is ``lens`` 0 and ``new`` its length
+    (more than 1), for every row it computes."""
+    e = _dtype(cfg.dtype).itemsize
+    lens = [int(n) for n in lens]
+    total = 0
+    for kind in list(cfg.pattern) * cfg.full_groups + list(cfg.tail):
+        if kind in MAMBA_KINDS:
+            h = cfg.ssm_num_heads
+            state = (h * (cfg.d_inner // h) * cfg.ssm_state * 4
+                     + (cfg.conv_width - 1)
+                     * (cfg.d_inner + 2 * cfg.ssm_state) * e)
+            total += state * len(lens) * (2 if new == 1 else 1)
+            continue
+        if kind in MLA_KINDS:
+            per = cfg.mla_latent_dim * e
+        elif cfg.kv_quant:
+            per = 2 * cfg.num_kv_heads * (cfg.qk_head_dim + 4)
+        else:
+            per = 2 * cfg.num_kv_heads * cfg.qk_head_dim * e
+        keep = (cfg.sliding_window if kind == "local" and cfg.sliding_window
+                else None)
+        total += per * sum((min(n, keep) if keep else n) + new for n in lens)
+    return total
 
 
 def merge_cache_slots(live, fresh, slot_mask):

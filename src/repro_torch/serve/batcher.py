@@ -61,8 +61,11 @@ With a tracer (``ServingEngine.trace_to``, which a ``ContinuousBatcher``
 given a tracer and an engine calls), the engine records each call as a
 span on the host clock of ``repro_torch.obs`` (the ``engine`` track of the
 lane's ``wall:`` process): ``decode`` or ``prefill``, with the call's
-sequence number, its compiled step's name and key and the rows it computes
-and keeps, holding in order ``dispatch`` (operand placement), ``copy_in``,
+sequence number, its compiled step's name and key, the rows it computes
+and keeps and ``state_bytes``, the cache bytes its step reads and writes
+(``models.cache_bytes`` over the call's lengths: every row's cache below
+its length read and the new positions written; a slot prefill's merge
+into the live caches is not counted), holding in order ``dispatch`` (operand placement), ``copy_in``,
 ``replay`` (or ``capture`` at a key's first call), ``copy_out`` (the
 compiled step's phases), ``readback`` (the pinned copies and the event)
 and ``wait`` (the event and the credit read).  A step launched while
@@ -90,8 +93,8 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_slot_prefill_step, zero_caches)
 from repro_torch.core import simulator as sim
 from repro_torch.kernels.ops import get_kernel
-from repro_torch.models import (ModelConfig, init_cache, init_params,
-                                scaled_down)
+from repro_torch.models import (ModelConfig, cache_bytes, init_cache,
+                                init_params, scaled_down)
 from repro_torch.runtime.sharding import cache_specs, param_specs, to_shardings
 
 from .calibrator import OnlineCalibrator
@@ -237,10 +240,13 @@ class ServingEngine:
 
     def _launch(self, step, *args, dispatch_s: float = 0.0,
                 kind: str = "decode", t_put: float = 0.0,
-                rows_kept: int | None = None) -> PendingStep:
+                rows_kept: int | None = None,
+                state: tuple = ((), 0)) -> PendingStep:
         """Queue ``step(*args)`` and time the queueing.  With a tracer,
         ``t_put`` is the ``perf_counter`` reading at the start of the
-        call's operand placement, which ends where the queueing starts."""
+        call's operand placement, which ends where the queueing starts,
+        and ``state`` the (per-row lengths, new positions) whose cache
+        bytes the call's span records."""
         t0 = time.perf_counter()
         out = step(*args)
         out["caches"] = self._caches      # the engine's own, as passed
@@ -260,18 +266,19 @@ class ServingEngine:
         if tr is not None:
             pending.trace = self._open_call(tr, step, kind, rows_kept, [
                 ("dispatch", t_put, t0, None), *self._marks,
-                ("readback", t_step, t1, None)])
+                ("readback", t_step, t1, None)], state)
             self._marks.clear()
         return pending
 
     def _open_call(self, tr, step, kind: str, rows_kept: int | None,
-                   phases: list) -> "_CallTrace":
+                   phases: list, state: tuple = ((), 0)) -> "_CallTrace":
         """A traced call's record at its launch."""
         self._calls += 1
         args = {"seq": self._calls, "step": step.name,
                 "key": next((a["key"] for _, _, _, a in phases
                              if a and "key" in a), None),
-                "rows_computed": self.max_batch}
+                "rows_computed": self.max_batch,
+                "state_bytes": cache_bytes(self.cfg, *state)}
         if rows_kept is not None:
             args["rows_kept"] = rows_kept
         track = "engine:overlap" if self._in_flight else "engine"
@@ -280,6 +287,11 @@ class ServingEngine:
 
     def _whole(self, t: torch.Tensor) -> torch.Tensor:
         return t.full_tensor() if self.mesh is not None else t
+
+    def _fresh_state(self, length: int) -> tuple:
+        """A prefill's (lengths, new positions): every row it computes,
+        from nothing."""
+        return (0,) * self.max_batch, length
 
     def init_caches(self):
         """The engine's decode caches, zeroed, for the slot-managed loop."""
@@ -300,7 +312,8 @@ class ServingEngine:
             metrics.record_dispatch(dstats)
         return self.wait_step(self._launch(
             step, self.params, {"tokens": placed}, self._caches,
-            dispatch_s=dstats.seconds, kind="prefill", t_put=dstats.t0))
+            dispatch_s=dstats.seconds, kind="prefill", t_put=dstats.t0,
+            state=self._fresh_state(tokens.shape[1])))
 
     def prefill_into_slots_async(self, tokens: np.ndarray, caches,
                                  slot_mask: np.ndarray,
@@ -318,7 +331,8 @@ class ServingEngine:
                             dispatch_s=dstats.seconds, kind="prefill",
                             t_put=dstats.t0,
                             rows_kept=(int(np.count_nonzero(slot_mask))
-                                       if self.tracer is not None else None))
+                                       if self.tracer is not None else None),
+                            state=self._fresh_state(tokens.shape[1]))
 
     def prefill_into_slots(self, tokens: np.ndarray, caches,
                            slot_mask: np.ndarray, metrics=None):
@@ -362,7 +376,8 @@ class ServingEngine:
         tok_t, lens_t = self.dispatcher.put((np.asarray(tok, np.int32), lens),
                                             self.device)
         return self._launch(self._dec_jit, self.params, tok_t,
-                            self._own(caches), lens_t, t_put=t_put)
+                            self._own(caches), lens_t, t_put=t_put,
+                            state=(lens, 1))
 
     def decode(self, tok: np.ndarray, caches, lens):
         """tok (max_batch, 1) int32 -> (next_token (B,), caches, wall_s).

@@ -60,7 +60,7 @@ def test_config_asdict_equal_full_and_scaled_down(arch):
 def test_config_validation_and_block_kinds_match_reference():
     from repro.models.config import BLOCK_KINDS as REF_KINDS
     assert BLOCK_KINDS[:len(REF_KINDS)] == REF_KINDS
-    assert BLOCK_KINDS[len(REF_KINDS):] == ("mamba_moe",)
+    assert BLOCK_KINDS[len(REF_KINDS):] == ("mamba_moe", "mla", "mla_moe")
     cfg = get_config("chatglm3-6b")
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, pattern=("nope",))

@@ -140,6 +140,22 @@ def test_row_counters_for_a_refill_of_one_of_four_slots(traced):
     assert "rows_kept" not in calls[1][0].args
 
 
+def test_each_call_records_the_cache_bytes_it_moves(traced):
+    """``state_bytes``: a prefill writes every row it computes at its
+    length, a decode step reads each row's keys and values below its
+    length and writes one position (``models.cache_bytes``)."""
+    from repro_torch.models import cache_bytes
+    tr = traced[0]
+    cfg = _engine().cfg
+    calls = _calls(tr)
+    assert calls[0][0].args["state_bytes"] == \
+        cache_bytes(cfg, [0] * 4, 8) > 0
+    assert calls[1][0].args["state_bytes"] == \
+        cache_bytes(cfg, [0, 8, 0, 0], 1)
+    per = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.qk_head_dim * 4
+    assert calls[1][0].args["state_bytes"] == per * (8 + 4)
+
+
 def test_an_untraced_engine_records_nothing():
     engine = _engine()
     tr = Tracer()

@@ -25,11 +25,13 @@ tests on the reference's cases are in tests/test_torch_decode_kernel.py):
     (granite-4.0-h-small's 4096 refill and decode call, qwen3-moe-30b-a3b's
     8 x 512 refill and decode call, capacity factor 0.25, two routing
     groups, one tile of copies less one, one, one more, a ragged last
-    tile); a captured call replayed twice, bit-equal, one launch counted
+    tile, kanana-2-30b-a3b's 4 x 8192 refill and decode call); a captured
+    call replayed twice, bit-equal, one launch counted
     per replay; what it does not take raises;
   * the MoE's expert-FFN kernel: within chip_smoke.py's
-    ``experts_tolerance`` of ``expert_ffn_plain`` at qwen3-moe-30b-a3b's
-    and granite-4.0-h-small's decode calls under the cell's routing, one
+    ``experts_tolerance`` of ``expert_ffn_plain`` at qwen3-moe-30b-a3b's,
+    granite-4.0-h-small's and kanana-2-30b-a3b's (C = 6) decode calls
+    under the cell's routing, one
     kept copy, every expert full, one expert holding C copies and two
     routing groups, dead experts' rows exactly 0; a captured call replayed
     twice bit-equal, one launch per replay, and replayed under other

@@ -14,9 +14,13 @@ On the card (skipped without one; no jax import, so the file runs there):
   * the kernel against the plain version at chatglm3-6b's (H 32, K 2) and
     qwen3-moe-30b-a3b's (H 32, K 4) heads, B = 4, L from 2 to 2048, with
     a sliding window, and at head dims 64 and 256, within chip_smoke.py's
-    ``prefill_tolerance`` (its docstring gives the reason);
+    ``prefill_tolerance`` (its docstring gives the reason); and at
+    kanana-2-30b-a3b's refills (multi-head latent attention: q and k 192
+    wide, v 128, 32 heads each with its own key and value, B = 4, L to
+    8192) with the (192, 128) instantiation;
   * a prefill launches the kernel once per layer (28 for chatglm3-6b's
-    depth, 48 for qwen3-moe's) and calls ``chunked_attention`` never; the
+    depth, 48 for qwen3-moe's and for kanana's MLA layers) and calls
+    ``chunked_attention`` never; the
     train step's forward calls ``chunked_attention`` once per layer and
     launches nothing;
   * a captured call replayed twice gives the eager call's output, bit for
@@ -25,6 +29,7 @@ On the card (skipped without one; no jax import, so the file runs there):
     PYTHONPATH=src python -m pytest tests/test_torch_prefill_attention.py -m cuda
 """
 
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -32,6 +37,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.kanana_2_30b_a3b import CONFIG as KANANA
 from repro_torch.kernels import prefill_attention as PA
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import layers
@@ -189,7 +195,46 @@ def test_kernel_matches_plain_version(card, b, length, h, kh, d, window):
     assert LAUNCHES["prefill_attention"] == before + 1 and res["share_of_tolerance"] <= 1
 
 
+MLA_CASES = [(2, 17), (2, 300), (4, 2048), (4, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length", MLA_CASES,
+                         ids=[f"B{b}-L{n}" for b, n in MLA_CASES])
+def test_kernel_matches_plain_version_at_mla_widths(card, b, length):
+    """q and k 192 wide, v 128, K = H = 32: the (192, 128) instantiation,
+    within the same tolerance, one launch."""
+    before = LAUNCHES["prefill_attention"]
+    res = SMOKE.check_prefill(("mla", b, length, 32, 32, 192, 0, 128), card,
+                              seed=length)
+    assert LAUNCHES["prefill_attention"] == before + 1
+    assert res["share_of_tolerance"] <= 1
+
+
 ARCHS = {"chatglm3-6b": 28, "qwen3-moe-30b-a3b": 48}
+
+
+@pytest.mark.cuda
+def test_an_mla_prefill_launches_the_kernel_once_per_layer(card,
+                                                           monkeypatch):
+    """kanana-2-30b-a3b's 48 MLA layers at their published head widths in
+    a narrow model: one launch a layer, ``chunked_attention`` never."""
+    cfg = dataclasses.replace(KANANA, d_model=256, d_ff=64, dense_d_ff=128,
+                              num_experts=8, shared_expert_ff=64,
+                              vocab_size=512, vocab_pad_to=1)
+    params = init_params(cfg, seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 300), device=card)
+    plain = []
+    attend = layers.chunked_attention
+    monkeypatch.setattr(layers, "chunked_attention", lambda q, k, v, **kw:
+                        (plain.append(q.shape), attend(q, k, v, **kw))[1])
+    before = LAUNCHES["prefill_attention"]
+    logits, _ = prefill(params, cfg, caches=init_cache(cfg, 4, 320,
+                                                       device=card),
+                        tokens=tokens)
+    torch.cuda.synchronize()
+    assert LAUNCHES["prefill_attention"] - before == 48 and plain == []
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 def _narrow(arch):
